@@ -1,24 +1,37 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``hikari_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases, each reported on its own line:
-  1. device: require CUDA; print the card and its power limit.
-  2. build: compile the closest-hit kernel from csrc/ with nvcc.
-  3. kernel vs twin on the card: (a) the 1080p cornell primary rays,
-     (b) a random 5120-triangle soup with instance exclusion and prim
-     ranges; prim must be equal, t/u/v within ATOL. Both timed with CUDA
-     events at (a)'s shapes.
-  4. main path: 8 frames of ``cornell_path`` (cornell, 1920x1080, no post
-     chain) through ``render_frame``; every trace must go through the
-     kernel (launches == CUDA trace calls > 0), the image must be finite
-     and lit. Then the same frames at 48x63 on the card and on the CPU
-     (the plain twin) from one state must agree.
-``--profile`` adds a torch.profiler breakdown of two more main-path
-frames. The second-to-last lines are the kernel table as JSON and the card's
-nvidia-smi name/power limit; the last line is the result JSON. Any failed
-phase raises, so the exit code is non-zero and no result line is printed.
+  1. [device] require CUDA; print the card and its power limit.
+  2. [build] compile both kernels from csrc/ with nvcc (closest_hit.cu,
+     tile_walk.cu) and the C++ BVH builder with g++, all at once; print
+     each build time and ptxas' registers, shared memory and spills.
+  3. cornell_path. [kernel]/[time]: the closest-hit kernel against its
+     plain twin on the card, (a) on the 1080p cornell primary rays, (b) on
+     a random 5120-triangle soup with exclusion and prim ranges; prim
+     equal, t/u/v within ATOL; CUDA-event times at (a) beside the bound.
+     [main]: 8 frames of cornell at 1920x1080 without the post chain
+     through ``render_frame``; every trace must go through the closest-hit
+     kernel, the image must be finite and lit. [check]: the same frames at
+     48x63 on the card and on the CPU (the plain twins) from one state.
+  4. city_path. [city]: host compile of the procedural city (550,994
+     triangles). [kernel]/[time]: the tile-walk kernel against its twin,
+     (c) on the city's 262,144 primary rays at 512x512, (d) on 65,536
+     random rays in the city with random max/early distance, exclusion and
+     one instance's prim range on half of them; prim and the clusters
+     tested per tile equal, t/u/v within ATOL; CUDA-event times at (c) of
+     the kernel, phase 1 with the sort, the whole ``trace_rays`` and the
+     twin, beside the kernel's bound. [main]: 8 frames at 512x512 without
+     the post chain; every trace must go through a kernel (for the city:
+     the tile walk). [check]: a small city (blocks=3, 18,422 triangles) at
+     48x63, card against CPU.
+``--profile`` adds a torch.profiler breakdown of two more frames of each
+main path. The second-to-last lines are the kernel table as JSON and the
+card's nvidia-smi name/power limit; the last line is the result JSON. Any
+failed phase raises, so the exit code is non-zero and no result line is
+printed.
 """
 
 import json
@@ -26,38 +39,42 @@ import subprocess
 import sys
 import time
 
-# t/u/v tolerance of kernel vs twin. The kernel evaluates the twin's
-# operations in the twin's order without FMA contraction, so the expected
+# t/u/v tolerance of kernel vs twin. The kernels evaluate the twins'
+# operations in the twins' order without FMA contraction, so the expected
 # difference is exactly 0; the measured maximum is printed.
 ATOL = 1e-5
 FRAMES = 8
-SIZE_HW = (1080, 1920)
+CORNELL_HW = (1080, 1920)
+CITY_HW = (512, 512)
 SMALL_HW = (48, 63)
+# Peaks of one H100 SXM at 700 W (NVIDIA's data sheet): FP32 outside the
+# tensor cores and HBM3 bandwidth. A ray/triangle pair test is ~30 flops.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+PAIR_FLOPS = 30
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def cornell_path(width, height):
-    """The cornell_path configuration: cornell_config at the given size
-    with the post chain off."""
+def path_settings(settings, width, height):
+    """The main paths' settings: the config at the given size with the
+    post chain off."""
     from hikari_tpu_torch.config import Taa, Upscale
-    from hikari_tpu_torch.io.scenes import cornell_config
 
-    scene, cam, settings = cornell_config()
-    settings = settings.replace(
+    return settings.replace(
         width=width, height=height, upscale=Upscale.none(), taa=Taa.NONE, denoise=False,
-        indirect_spatial_reuse=False, emissive_lit=True, indirect_bounces=1,
-        reservoir_f16=True, reproject="shift", remat=False, collect_stats=True,
+        indirect_spatial_reuse=False, emissive_spatial_reuse=False, emissive_lit=True,
+        indirect_bounces=1, reservoir_f16=True, reproject="shift", remat=False,
+        collect_stats=True, tracer="auto",
     )
-    return scene, cam, settings
 
 
-def cuda_time_ms(fn, iters):
+def cuda_time_ms(fn, iters, warmup=2):
     import torch
 
-    for _ in range(2):
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -69,18 +86,33 @@ def cuda_time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def bound_ms(flops, nbytes):
+    """The least time the card could take: the larger of the operations
+    over the FP32 peak and the bytes over the memory rate."""
+    ops_ms, bytes_ms = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
 def compare(name, got, want):
-    """Kernel (t, prim, u, v) against the twin's; returns max |t,u,v| err."""
-    t, prim, u, v = got
-    t_r, prim_r, u_r, v_r = want
+    """Kernel (t, prim, u, v[, tested]) against the twin's; returns the
+    max |t,u,v| error."""
+    t, prim, u, v = got[:4]
+    t_r, prim_r, u_r, v_r = want[:4]
     n_diff = int((prim != prim_r).sum())
     if n_diff:
         raise AssertionError(f"{name}: prim differs from the twin on {n_diff} rays")
+    extra = ""
+    if len(got) > 4:
+        n_tiles = int((got[4] != want[4]).sum())
+        if n_tiles:
+            raise AssertionError(f"{name}: clusters tested differ from the twin on {n_tiles} tiles")
+        extra = f", tested clusters equal on {got[4].numel()} tiles (sum {int(got[4].sum())})"
     err = max(float((a - b).abs().max()) for a, b in ((t, t_r), (u, u_r), (v, v_r)))
     if not err <= ATOL:
         raise AssertionError(f"{name}: t/u/v differ from the twin by {err} > {ATOL}")
     hits = int((prim >= 0).sum())
-    log(f"[kernel] {name}: {prim.numel()} rays, {hits} hits, prim equal, max |t,u,v| err {err}")
+    log(f"[kernel] {name}: {prim.numel()} rays, {hits} hits, prim equal{extra}, "
+        f"max |t,u,v| err {err}")
     return err
 
 
@@ -123,10 +155,144 @@ def soup_case(device):
     )
 
 
-def profile_frames(scene, cam, state, settings, frames=2, top=15):
-    """``--profile``: trace ``frames`` more main-path frames with
-    torch.profiler; print the device busy share (kernel time over wall
-    time) and the kernels with the most device time."""
+def walk_case(scene, o, d, maxd, early, excl, lo, hi):
+    """The tile walk's arguments for flat rays, as ``trace_rays`` builds
+    them: the scene's cluster rule, rays sorted into tiles (the ray count
+    is a multiple of 512 here, so no padding), phase 1 and the sort.
+    Returns (walk arguments, phase-1 arguments)."""
+    from hikari_tpu_torch.trace import api
+    from hikari_tpu_torch.trace import tile_walk as tw
+
+    cluster, use_skip = api.tile_cluster_rule(scene.tri_n.shape[0])
+    if o.shape[0] % 512:
+        raise ValueError("walk_case takes whole tiles")
+    order = api.ray_sort_order(scene, o, d)
+    o, d, maxd, early, excl, lo, hi = (x[order].contiguous() for x in (o, d, maxd, early, excl, lo, hi))
+    packed, cmin, cmax, cvalid = tw.pack_clusters(scene, cluster)
+    phase1 = (cmin, cmax, cvalid, o, d, maxd, lo, hi, cluster)
+    sorted_, entry, maxent = tw.tile_entries(*phase1)
+    walk = (packed, cmin, cmax, o, d, maxd, early, excl, lo, hi, sorted_, entry, maxent,
+            cluster, use_skip)
+    return walk, phase1
+
+
+def city_random_rays(scene, device, R=65536, seed=11):
+    """Random rays in the city with the whole contract: random max
+    distance (or none), exclusion, early distance on a third of them and
+    one instance's prim range on half of them."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    o = np.stack([rng.uniform(-96, 96, R), rng.uniform(0.5, 30, R), rng.uniform(-96, 96, R)], -1)
+    d = rng.normal(size=(R, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    maxd = np.where(rng.uniform(size=R) < 0.5, rng.uniform(1, 200, R), 3.0e38)
+    early = np.where(rng.uniform(size=R) < 0.35, rng.uniform(0, 100, R), 0.0)
+    n_inst = scene.num_instances
+    excl = rng.integers(-1, n_inst, R)
+    offset = scene.inst_prim_offset.cpu().numpy()
+    count = scene.inst_prim_count.cpu().numpy()
+    inst = rng.integers(0, n_inst, R)
+    half = rng.uniform(size=R) < 0.5
+    lo = np.where(half, offset[inst], 0)
+    hi = np.where(half, offset[inst] + count[inst], scene.num_tris)
+
+    def dev(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x).astype(dtype)).to(device)
+
+    return (dev(o, np.float32), dev(d, np.float32), dev(maxd, np.float32), dev(early, np.float32),
+            dev(excl, np.int32), dev(lo, np.int32), dev(hi, np.int32))
+
+
+def run_main_path(name, scene, cam, settings, device):
+    """``FRAMES`` frames through ``render_frame`` with every launch count
+    set to 0 just before and read just after. Checks that every trace went
+    through a kernel and that the image is finite and lit; returns (final
+    state, launches per kernel)."""
+    import numpy as np
+    import torch
+
+    from hikari_tpu_torch.render.pipeline import initial_state, render_frame
+    from hikari_tpu_torch.trace import api
+    from hikari_tpu_torch.trace import closest_hit as ch
+    from hikari_tpu_torch.trace import tile_walk as tw
+    from hikari_tpu_torch.utils import luminance
+
+    state = initial_state(settings, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    ch.launches = tw.launches = api.trace_calls = 0
+    frame_ms = []
+    with torch.no_grad():
+        for _ in range(FRAMES):
+            t0 = time.perf_counter()
+            out, state = render_frame(scene, cam, state, settings)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {"closest_hit": ch.launches, "tile_walk": tw.launches}
+    traces = api.trace_calls
+    peak = torch.cuda.max_memory_allocated(device)
+    if not (traces > 0 and sum(launches.values()) == traces):
+        raise AssertionError(f"{name}: kernel launches {launches} for {traces} CUDA trace calls")
+    stats = {k: float(v) for k, v in out.stats.items()}
+    img = out.image
+    if tuple(img.shape) != (settings.height, settings.width, 4):
+        raise AssertionError(f"{name}: image shape {tuple(img.shape)}")
+    if stats["nonfinite_pixels"] != 0 or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{name}: non-finite image: {stats}")
+    mean_lum = float(luminance(img[..., :3]).mean())
+    if not mean_lum > 0.0:
+        raise AssertionError(f"{name}: black image: mean luminance {mean_lum}")
+    # Where the lighting channels and the f16 reservoir storage hold
+    # non-finite values (the image itself must be finite, checked above).
+    nonfinite = {k: int((~torch.isfinite(getattr(out, k))).sum())
+                 for k in ("direct", "emissive", "indirect")}
+    f16_inf = {}
+    for k in ("direct_temporal", "emissive_temporal", "indirect_temporal"):
+        res = getattr(state, k)
+        f16_inf[k] = sum(int(torch.isinf(x).sum()) for x in (
+            res.w, res.w_sum, res.w2_sum, res.s.radiance) if x.dtype == torch.float16)
+    median_ms = float(np.median(frame_ms[1:]))
+    log(f"[main] {name} {settings.width}x{settings.height}, {FRAMES} frames: {traces} trace calls, "
+        f"kernel launches {launches}; ms/frame median(frames 2-{FRAMES}) {median_ms:.2f} "
+        f"(all: {', '.join(f'{m:.1f}' for m in frame_ms)}); peak memory "
+        f"{peak / 2**30:.3f} GiB; mean luminance {mean_lum:.4f}; stats {stats}")
+    log(f"[main] {name} last frame: non-finite values per channel {nonfinite}; inf entries in "
+        f"the f16 reservoir state (w, w_sum, w2_sum, radiance) {f16_inf}")
+    return state, launches
+
+
+def check_small(name, scene_gpu, scene_cpu, cam, settings, device):
+    """The card (kernels) against the CPU (twins), frame by frame from one
+    state. Discrete ReSTIR choices may flip a few edge pixels on 1-ulp
+    differences of transcendental functions, hence a share-of-pixels
+    bound."""
+    import torch
+
+    from hikari_tpu_torch.render.pipeline import initial_state, render_frame
+    from hikari_tpu_torch.utils import map_tensors
+
+    cam_cpu = cam.to("cpu")
+    st_cpu = initial_state(settings, "cpu")
+    with torch.no_grad():
+        for frame in range(3):
+            st_gpu = map_tensors(lambda x: x.to(device), st_cpu)
+            o_gpu, _ = render_frame(scene_gpu, cam_cpu.to(device), st_gpu, settings)
+            o_cpu, st_cpu = render_frame(scene_cpu, cam_cpu, st_cpu, settings)
+            diff = (o_gpu.image.cpu() - o_cpu.image).abs().amax(-1)
+            share = float((diff <= 1e-3).to(torch.float32).mean())
+            if share < 0.99:
+                raise AssertionError(f"{name} frame {frame}: only {share:.4f} of pixels within 1e-3")
+            log(f"[check] {name} {settings.width}x{settings.height} frame {frame}: card vs CPU "
+                f"twin, {share:.4f} of pixels within 1e-3, max |diff| {float(diff.max()):.3g}")
+
+
+def profile_frames(name, scene, cam, state, settings, frames=2, top=12):
+    """``--profile``: trace ``frames`` more frames with torch.profiler;
+    print the device busy share (kernel time over wall time), the device
+    time under the tile walk's ranges and the kernels with the most
+    device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -139,11 +305,19 @@ def profile_frames(scene, cam, state, settings, frames=2, top=15):
             _, state = render_frame(scene, cam, state, settings)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    events = prof.key_averages()
+    ranges = ("tile_entries", "tile_walk")
+    # The ranges also appear as device-side annotations: keep them out of
+    # the kernel sums, which would count their kernels twice.
+    kernels = [e for e in events if e.device_type.name == "CUDA" and e.key not in ranges]
     busy_us = sum(e.self_device_time_total for e in kernels)
     n_launch = sum(e.count for e in kernels)
-    log(f"[profile] {frames} frames: wall {wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms "
-        f"({busy_us / wall_us:.3f} of wall), {n_launch} kernel launches")
+    log(f"[profile] {name}, {frames} frames: wall {wall_us / 1e3:.2f} ms, device busy "
+        f"{busy_us / 1e3:.2f} ms ({busy_us / wall_us:.3f} of wall), {n_launch} kernel launches")
+    for e in events:
+        if e.key in ranges:
+            log(f"[profile]   range {e.key} ({e.device_type.name}): {e.count}x, device "
+                f"{e.device_time_total / 1e3:.3f} ms, cpu {e.cpu_time_total / 1e3:.3f} ms")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}")
 
@@ -156,16 +330,17 @@ def main():
               file=sys.stderr)
         return 1
 
-    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
 
     from hikari_tpu_torch.config import DISTANCE_MAX
-    from hikari_tpu_torch.io.scenes import cornell_box_scene
-    from hikari_tpu_torch.render.pipeline import initial_state, render_frame
-    from hikari_tpu_torch.scene import compile_scene, to_device
+    from hikari_tpu_torch.io.scenes import city_config, city_scene, cornell_box_scene, cornell_config
+    from hikari_tpu_torch.scene import compile_scene, native, to_device
     from hikari_tpu_torch.trace import api
     from hikari_tpu_torch.trace import closest_hit as ch
-    from hikari_tpu_torch.utils import luminance, map_tensors
+    from hikari_tpu_torch.trace import tile_walk as tw
+    from hikari_tpu_torch.utils.nvcc import ptxas_summary
 
+    profile = "--profile" in sys.argv[1:]
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -174,18 +349,25 @@ def main():
     log(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
-    # ---- 2. build ----
-    secs = ch.build()
-    ptxas = [ln.strip() for ln in ch.build_log.splitlines() if "registers" in ln or "spill" in ln]
-    log(f"[build] closest_hit.cu built and loaded in {secs:.2f} s; ptxas: {' | '.join(ptxas)}")
+    # ---- 2. build: both nvcc and the g++ builder at once ----
+    def g_build():
+        native.get_builder()
+        return native.build_seconds
 
-    # ---- 3. kernel vs twin ----
+    with ThreadPoolExecutor(3) as pool:
+        futures = [pool.submit(f) for f in (ch.build, tw.build, g_build)]
+        ch_s, tw_s, gxx_s = (f.result() for f in futures)
+    log(f"[build] closest_hit.cu {ch_s:.2f} s; ptxas: {ptxas_summary(ch.build_log)}")
+    log(f"[build] tile_walk.cu {tw_s:.2f} s; ptxas: {ptxas_summary(tw.build_log)}")
+    log(f"[build] bvh_builder.cpp (g++) {gxx_s:.2f} s")
+
+    # ---- 3a. closest-hit kernel vs twin on the cornell shapes ----
     arrays = compile_scene(cornell_box_scene())
-    scene = to_device(arrays, dev)
-    scene_cpu = to_device(arrays, "cpu")
-    _, cam, settings = cornell_path(SIZE_HW[1], SIZE_HW[0])
-    cam = cam.to(dev)
-    origin, direction = cam.pixel_rays(SIZE_HW)
+    cornell = to_device(arrays, dev)
+    cornell_cpu = to_device(arrays, "cpu")
+    _, cam, cornell_settings = cornell_config(device=dev)
+    cornell_settings = path_settings(cornell_settings, CORNELL_HW[1], CORNELL_HW[0])
+    origin, direction = cam.pixel_rays(CORNELL_HW)
     R = origin.shape[0] * origin.shape[1]
     prim_args = (
         origin.reshape(-1, 3).contiguous(),
@@ -193,87 +375,127 @@ def main():
         torch.full((R,), DISTANCE_MAX, device=dev),
         torch.full((R,), -1, dtype=torch.int32, device=dev),
         torch.zeros((R,), dtype=torch.int32, device=dev),
-        torch.full((R,), scene.num_tris, dtype=torch.int32, device=dev),
-        ch.pack_triangles(scene),
+        torch.full((R,), cornell.num_tris, dtype=torch.int32, device=dev),
+        ch.pack_triangles(cornell),
     )
     err_a = compare("(a) cornell 1080p primary", ch.closest_hit(*prim_args),
                     ch.closest_hit_reference(*prim_args))
     soup = soup_case(dev)
     err_b = compare("(b) 5120-tri soup", ch.closest_hit(*soup), ch.closest_hit_reference(*soup))
     torch.cuda.synchronize()
-    kernel_ms = cuda_time_ms(lambda: ch.closest_hit(*prim_args), 50)
-    plain_ms = cuda_time_ms(lambda: ch.closest_hit_reference(*prim_args), 5)
+    ch_ms = cuda_time_ms(lambda: ch.closest_hit(*prim_args), 50)
+    ch_plain_ms = cuda_time_ms(lambda: ch.closest_hit_reference(*prim_args), 5)
     soup_ms = cuda_time_ms(lambda: ch.closest_hit(*soup), 20)
     soup_plain_ms = cuda_time_ms(lambda: ch.closest_hit_reference(*soup), 3)
-    log(f"[time] (a) {R} rays x {scene.num_tris} tris: kernel {kernel_ms:.4f} ms, "
-        f"twin {plain_ms:.4f} ms; (b) 65536 rays x 5120 tris: kernel {soup_ms:.4f} ms, "
-        f"twin {soup_plain_ms:.4f} ms")
+    P = cornell.num_tris
+    # Bytes: each ray's o, d, maxd, excl, lo, hi read and t, prim, u, v
+    # written (56 B), the table read once.
+    ch_bound, ch_by = bound_ms(R * P * PAIR_FLOPS, R * 56 + P * 64)
+    Rs, Ps = soup[0].shape[0], soup[6].shape[0]
+    soup_bound, soup_by = bound_ms(Rs * Ps * PAIR_FLOPS, Rs * 56 + Ps * 64)
+    log(f"[time] (a) {R} rays x {P} tris: kernel {ch_ms:.4f} ms, twin {ch_plain_ms:.4f} ms, "
+        f"bound {ch_bound:.4f} ms ({ch_by}); (b) {Rs} rays x {Ps} tris: kernel {soup_ms:.4f} ms, "
+        f"twin {soup_plain_ms:.4f} ms, bound {soup_bound:.4f} ms ({soup_by})")
 
-    # ---- 4. main path ----
-    state = initial_state(settings, dev)
+    # ---- 3b. cornell_path ----
+    cornell_state, cornell_launches = run_main_path("cornell_path", cornell, cam, cornell_settings, dev)
+    if cornell_launches["tile_walk"]:
+        raise AssertionError("cornell_path launched the tile walk: it has only 36 triangles")
+    if profile:
+        profile_frames("cornell_path", cornell, cam, cornell_state, cornell_settings)
+    _, cam_s, small = cornell_config(device="cpu")
+    check_small("cornell", cornell, cornell_cpu, cam_s,
+                path_settings(small, SMALL_HW[1], SMALL_HW[0]), dev)
+
+    # ---- 4a. tile-walk kernel vs twin on the city shapes ----
+    t0 = time.perf_counter()
+    city_scene_, city_cam, city_settings = city_config(device=dev)
+    city_arrays = compile_scene(city_scene_)
+    compile_s = time.perf_counter() - t0
+    city = to_device(city_arrays, dev)
+    city_settings = path_settings(city_settings, CITY_HW[1], CITY_HW[0])
+    log(f"[city] host compile {compile_s:.2f} s (C++ builder): {city.num_tris} triangles, "
+        f"{city.num_instances} instances, {city.num_emissives} emissive instances; cluster rule "
+        f"{api.tile_cluster_rule(city.tri_n.shape[0])}")
+    c_origin, c_direction = city_cam.pixel_rays(CITY_HW)
+    Rc = c_origin.shape[0] * c_origin.shape[1]
+    co, cd = c_origin.reshape(-1, 3).contiguous(), c_direction.reshape(-1, 3).contiguous()
+    walk_c, phase1_c = walk_case(
+        city, co, cd, torch.full((Rc,), DISTANCE_MAX, device=dev), torch.zeros((Rc,), device=dev),
+        torch.full((Rc,), -1, dtype=torch.int32, device=dev),
+        torch.zeros((Rc,), dtype=torch.int32, device=dev),
+        torch.full((Rc,), city.num_tris, dtype=torch.int32, device=dev),
+    )
+    got_c = tw.tile_walk(*walk_c)
+    err_c = compare("(c) city 512x512 primary", got_c, tw.tile_walk_reference(*walk_c))
+    walk_d, _ = walk_case(city, *city_random_rays(city, dev))
+    err_d = compare("(d) city random rays", tw.tile_walk(*walk_d), tw.tile_walk_reference(*walk_d))
+    tested = got_c[4]
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    ch.launches = 0
-    api.trace_calls = 0
-    frame_ms = []
-    with torch.no_grad():
-        for _ in range(FRAMES):
-            t0 = time.perf_counter()
-            out, state = render_frame(scene, cam, state, settings)
-            torch.cuda.synchronize()
-            frame_ms.append((time.perf_counter() - t0) * 1e3)
-    launches, traces = ch.launches, api.trace_calls
-    peak = torch.cuda.max_memory_allocated(dev)
-    if not (traces > 0 and launches == traces):
-        raise AssertionError(f"{launches} kernel launches for {traces} CUDA trace calls")
-    stats = {k: float(v) for k, v in out.stats.items()}
-    img = out.image
-    if tuple(img.shape) != SIZE_HW + (4,):
-        raise AssertionError(f"image shape {tuple(img.shape)}")
-    if stats["nonfinite_pixels"] != 0 or not bool(torch.isfinite(img).all()):
-        raise AssertionError(f"non-finite image: {stats}")
-    mean_lum = float(luminance(img[..., :3]).mean())
-    if not mean_lum > 0.0:
-        raise AssertionError(f"black image: mean luminance {mean_lum}")
-    median_ms = float(np.median(frame_ms[1:]))
-    log(f"[main] cornell_path {SIZE_HW[1]}x{SIZE_HW[0]}, {FRAMES} frames: {traces} trace calls, "
-        f"{launches} kernel launches; ms/frame median(frames 2-{FRAMES}) {median_ms:.2f} "
-        f"(all: {', '.join(f'{m:.1f}' for m in frame_ms)}); peak memory "
-        f"{peak / 2**30:.3f} GiB; mean luminance {mean_lum:.4f}; stats {stats}")
+    tw_ms = cuda_time_ms(lambda: tw.tile_walk(*walk_c), 20)
+    entries_ms = cuda_time_ms(lambda: tw.tile_entries(*phase1_c), 5)
+    trace_ms = cuda_time_ms(
+        lambda: api.trace_rays(city, c_origin, c_direction, max_distance=DISTANCE_MAX), 5)
+    tw_plain_ms = cuda_time_ms(lambda: tw.tile_walk_reference(*walk_c), 1, warmup=1)
+    cluster = walk_c[13]
+    T, L = walk_c[10].shape
+    pairs = int(tested.sum()) * 512 * cluster
+    # Bytes: each ray's o, d, maxd, early, excl, lo, hi, maxent read and
+    # t, prim, u, v written (64 B), each tile's cluster ids and entries
+    # read (8 B each), the tested count written, the packed table and the
+    # cluster bounds read once.
+    walk_bytes = Rc * 64 + T * L * 8 + T * 4 + walk_c[0].numel() * 4 + L * 24
+    tw_bound, tw_by = bound_ms(pairs * PAIR_FLOPS, walk_bytes)
+    log(f"[time] (c) {Rc} rays, {T} tiles x {L} clusters of {cluster}: {int(tested.sum())} "
+        f"clusters tested ({pairs} pairs); K2 kernel {tw_ms:.4f} ms, bound {tw_bound:.4f} ms "
+        f"({tw_by}); phase 1 + sort {entries_ms:.4f} ms; whole trace_rays {trace_ms:.4f} ms; "
+        f"twin {tw_plain_ms:.4f} ms")
 
-    if "--profile" in sys.argv[1:]:
-        profile_frames(scene, cam, state, settings)
+    # ---- 4b. city_path ----
+    del walk_c, walk_d, got_c, phase1_c  # keep the kernel cases out of the path's peak memory
+    city_state, city_launches = run_main_path("city_path", city, city_cam, city_settings, dev)
+    if city_launches["closest_hit"]:
+        raise AssertionError("city_path sent a trace to the closest-hit kernel")
+    if profile:
+        profile_frames("city_path", city, city_cam, city_state, city_settings)
+    small_arrays = compile_scene(city_scene(blocks=3, detail=True))
+    if len(small_arrays.tri_world) <= city_settings.bruteforce_max_tris:
+        raise AssertionError("the small city must be large enough for the tile walk")
+    check_small("small city (blocks=3)", to_device(small_arrays, dev),
+                to_device(small_arrays, "cpu"), city_cam,
+                path_settings(city_settings, SMALL_HW[1], SMALL_HW[0]), dev)
 
-    # Small-input reference: the card (kernel) against the CPU (twin),
-    # frame by frame from one state. Discrete ReSTIR choices may flip a few
-    # edge pixels on 1-ulp differences of transcendental functions, hence
-    # a share-of-pixels bound.
-    _, cam_s, small = cornell_path(SMALL_HW[1], SMALL_HW[0])
-    st_cpu = initial_state(small, "cpu")
-    with torch.no_grad():
-        for frame in range(3):
-            st_gpu = map_tensors(lambda x: x.to(dev), st_cpu)
-            o_gpu, _ = render_frame(scene, cam_s.to(dev), st_gpu, small)
-            o_cpu, st_cpu = render_frame(scene_cpu, cam_s, st_cpu, small)
-            diff = (o_gpu.image.cpu() - o_cpu.image).abs().amax(-1)
-            share = float((diff <= 1e-3).to(torch.float32).mean())
-            if share < 0.99:
-                raise AssertionError(f"small frame {frame}: only {share:.4f} of pixels within 1e-3")
-            log(f"[check] {SMALL_HW[1]}x{SMALL_HW[0]} frame {frame}: card vs CPU twin, "
-                f"{share:.4f} of pixels within 1e-3, max |diff| {float(diff.max()):.3g}")
     if "jax" in sys.modules or "hikari_tpu" in sys.modules:
         raise AssertionError("the port imported jax or hikari_tpu")
 
-    print(json.dumps({"kernels": [{
-        "name": "closest_hit",
-        "route": "cuda",
-        "source": "hikari_tpu_torch/csrc/closest_hit.cu",
-        "replaces": "hikari_tpu/trace/pallas_kernel.py:142",
-        "launches": launches,
-        "max_abs_err": max(err_a, err_b),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+    print(json.dumps({"kernels": [
+        {
+            "name": "closest_hit",
+            "route": "cuda",
+            "source": "hikari_tpu_torch/csrc/closest_hit.cu",
+            "replaces": "hikari_tpu/trace/pallas_kernel.py:142",
+            "launches": cornell_launches["closest_hit"],
+            "max_abs_err": max(err_a, err_b),
+            "ms": ch_ms,
+            "plain_ms": ch_plain_ms,
+            "bound_ms": ch_bound,
+            "bound_by": ch_by,
+            "library_ms": None,
+        },
+        {
+            "name": "tile_walk",
+            "route": "cuda",
+            "source": "hikari_tpu_torch/csrc/tile_walk.cu",
+            "replaces": "hikari_tpu/trace/pallas_tiled.py:96",
+            "launches": city_launches["tile_walk"],
+            "max_abs_err": max(err_c, err_d),
+            "ms": tw_ms,
+            "plain_ms": tw_plain_ms,
+            "bound_ms": tw_bound,
+            "bound_by": tw_by,
+            "library_ms": None,
+        },
+    ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

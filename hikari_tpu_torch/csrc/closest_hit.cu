@@ -39,9 +39,9 @@
 // broadcast.
 //
 // What a later PR should do: double-buffer the tiles with cp.async or TMA,
-// give each thread several rays so a triangle's loads amortise, and for big
-// scenes port the K2 cluster walk (trace/pallas_tiled.py) instead of testing
-// every triangle.
+// and give each thread several rays so a triangle's loads amortise. Big
+// scenes do not come here: above 2048 triangles trace/api.py sends rays to
+// the cluster walk of tile_walk.cu.
 
 #include <cuda_runtime.h>
 

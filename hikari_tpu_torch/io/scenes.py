@@ -2,8 +2,11 @@
 constructor returns (Scene, Camera, RenderSettings) matching the
 reference's example scenes (examples/*.rs).
 
-Only the Cornell box is ported so far, as its procedural replica (the
-JAX package falls back to the same geometry when cornell.glb is absent).
+Ported so far: the Cornell box, as its procedural replica (the JAX
+package falls back to the same geometry when cornell.glb is absent), and
+the city config with its procedural city (the JAX package's stand-in when
+the City glTF geometry is absent). glTF loading waits for ``io/gltf.py``,
+which is not ported yet.
 """
 
 from __future__ import annotations
@@ -13,7 +16,13 @@ import numpy as np
 from hikari_tpu_torch.config import RenderSettings, Upscale
 from hikari_tpu_torch.render.camera import Camera
 from hikari_tpu_torch.scene.compile import DirectionalLight, Instance, Material, Scene
-from hikari_tpu_torch.scene.mesh import cube_mesh, quad_mesh
+from hikari_tpu_torch.scene.mesh import (
+    building_mesh,
+    cube_mesh,
+    plane_mesh,
+    quad_mesh,
+    uv_sphere_mesh,
+)
 
 
 def _euler_xyz_matrix(rx: float, ry: float, rz: float) -> np.ndarray:
@@ -34,6 +43,14 @@ def _transform(translation=(0, 0, 0), rotation=None, scale=(1, 1, 1)) -> np.ndar
     m[:3, :3] = r * np.asarray(scale, dtype=np.float32)[None, :]
     m[:3, 3] = translation
     return m
+
+
+def _sun_from_euler(rx, ry, rz, illuminance=10000.0) -> DirectionalLight:
+    """Bevy directional lights shine along the rotated -Z axis; the GPU
+    light color is premultiplied by illuminance (bevy_pbr 0.9)."""
+    rot = _euler_xyz_matrix(rx, ry, rz)
+    direction = rot @ np.array([0.0, 0.0, -1.0], dtype=np.float32)
+    return DirectionalLight(direction=tuple(direction), color=(illuminance,) * 3)
 
 
 def cornell_box_scene() -> Scene:
@@ -73,9 +90,10 @@ def _procedural_cornell(scene: Scene) -> Scene:
     return scene
 
 
-def cornell_config(size: int = 512, device="cpu"):
+def cornell_config(size: int = 512, device=None):
     """BASELINE config 1: 'cornell.rs Cornell box: direct lighting only,
-    1 bounce, 1 spp, 512x512'. The camera lives on ``device``."""
+    1 bounce, 1 spp, 512x512'. The camera lives on ``device``: the CUDA
+    card unless the caller names another (raises without a card)."""
     scene = cornell_box_scene()
     cam = Camera.from_lookat(eye=(0.0, 1.0, 4.0), target=(0.0, 1.0, 0.0), device=device)
     settings = RenderSettings(
@@ -85,5 +103,72 @@ def cornell_config(size: int = 512, device="cpu"):
         indirect_bounces=1,
         # examples/cornell.rs:18 inserts ClearColor(Color::BLACK)
         clear_color=(0.0, 0.0, 0.0, 1.0),
+    )
+    return scene, cam, settings
+
+
+def procedural_city(scene: Scene, blocks: int = 8, seed: int = 7, detail: bool = False) -> Scene:
+    """Large-scene stand-in for the City config: a grid of buildings with
+    varied heights, a ground plane, street lamps (emissive spheres) and the
+    scene's sun. ``detail=True`` swaps the plain boxes for window-facade
+    tower meshes (``building_mesh``, 8 variants shared across instances —
+    the geometry class of the reference's City stage, examples/city.rs).
+    At blocks=16, detail=True: 343 instances, 550,994 triangles, 86 lamps."""
+    rng = np.random.default_rng(seed)
+    ground = scene.add_material(Material(base_color=(0.25, 0.25, 0.27, 1.0)))
+    lamp = scene.add_material(Material(base_color=(1, 1, 1, 1), emissive=(1.0, 0.9, 0.7, 0.3)))
+    plane = scene.add_mesh(plane_mesh(1.0))
+    box = scene.add_mesh(cube_mesh(1.0))
+    towers = None
+    if detail:
+        towers = [
+            scene.add_mesh(building_mesh(floors=6 + (v % 4) * 2, cols=4 + v % 3, seed=v))
+            for v in range(8)
+        ]
+    sphere = scene.add_mesh(uv_sphere_mesh(1.0, 12, 6))
+
+    size = blocks * 12.0
+    scene.add_instance(Instance(plane, ground, _transform((0, 0, 0), None, (size, 1.0, size))))
+    for i in range(blocks):
+        for j in range(blocks):
+            x = (i - blocks / 2 + 0.5) * 12.0
+            z = (j - blocks / 2 + 0.5) * 12.0
+            h = float(rng.uniform(4.0, 20.0))
+            w = float(rng.uniform(4.0, 8.0))
+            c = rng.uniform(0.3, 0.8, size=3)
+            mat = scene.add_material(
+                Material(
+                    base_color=(float(c[0]), float(c[1]), float(c[2]), 1.0),
+                    perceptual_roughness=float(rng.uniform(0.3, 0.9)),
+                )
+            )
+            mesh_id = box if towers is None else towers[(i * blocks + j) % 8]
+            scene.add_instance(Instance(mesh_id, mat, _transform((x, h / 2, z), None, (w, h, w))))
+            if (i + j) % 3 == 0:
+                scene.add_instance(
+                    Instance(sphere, lamp, _transform((x + 6.0, 3.0, z), None, (0.3, 0.3, 0.3)))
+                )
+    return scene
+
+
+def city_scene(blocks: int = 16, detail: bool = True) -> Scene:
+    """The City scene as the JAX package's ``gltf_scene("City")`` builds
+    it without the City geometry: the procedural city under its sun."""
+    scene = Scene(materials=[], directional_light=_sun_from_euler(-1.0, 0.6, 0.0, 10000.0))
+    return procedural_city(scene, blocks=blocks, detail=detail)
+
+
+def city_config(width: int = 512, height: int = 512, device=None):
+    """BASELINE config 5: large scene, full pipeline + temporal upscaling +
+    differentiable materials. The geometry is ``city_scene()`` (glTF
+    loading waits for ``io/gltf.py``); the camera lives on ``device``, the
+    CUDA card unless the caller names another."""
+    scene = city_scene()
+    cam = Camera.from_lookat(eye=(30.0, 20.0, 30.0), target=(0.0, 0.0, 0.0), device=device)
+    settings = RenderSettings(
+        width=width,
+        height=height,
+        upscale=Upscale.smaa_tu4x(2.0),
+        denoise=True,
     )
     return scene, cam, settings

@@ -11,7 +11,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from hikari_tpu_torch.utils import basis_apply
+from hikari_tpu_torch.utils import basis_apply, resolve_device
 
 
 def look_at_transform(eye, target, up=(0.0, 1.0, 0.0)) -> np.ndarray:
@@ -63,7 +63,10 @@ class Camera:
     @staticmethod
     def from_lookat(eye, target, up=(0.0, 1.0, 0.0), prev_eye=None, prev_target=None,
                     fov_y: float = float(np.pi / 4), near: float = 0.1,
-                    device="cpu") -> "Camera":
+                    device=None) -> "Camera":
+        """The camera's matrices live on ``device``: the CUDA card unless
+        the caller names another (raises without a card)."""
+        device = resolve_device(device)
         cur = look_at_transform(eye, target, up)
         prev = look_at_transform(prev_eye, prev_target, up) if prev_eye is not None else cur
         return Camera(

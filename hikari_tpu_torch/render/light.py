@@ -104,7 +104,7 @@ def strided_deferred_plane(a, c: int, ratio_int: int, render_size):
     return a[c : c + R * (rh - 1) + 1 : R, c : c + R * (rw - 1) + 1 : R]
 
 
-def render_coords(render_size, device="cpu"):
+def render_coords(render_size, device):
     rh, rw = render_size
     return torch.meshgrid(
         torch.arange(rh, dtype=torch.int32, device=device),

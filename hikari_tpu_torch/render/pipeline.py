@@ -25,7 +25,7 @@ from hikari_tpu_torch.render.restir import Reservoir, compress_reservoir, decomp
 from hikari_tpu_torch.render.tonemap import tone_mapping
 from hikari_tpu_torch.render.types import FrameState, GBuffer, RenderOutputs
 from hikari_tpu_torch.scene.buffers import SceneBuffers
-from hikari_tpu_torch.utils import luminance, map_tensors
+from hikari_tpu_torch.utils import luminance, map_tensors, resolve_device
 
 _RESERVOIRS = (
     "direct_temporal",
@@ -193,9 +193,11 @@ def render_frame(
     return outputs, new_state
 
 
-def initial_state(settings: RenderSettings, device="cpu") -> FrameState:
+def initial_state(settings: RenderSettings, device=None) -> FrameState:
     """Allocate the cross-frame state with the per-pass shapes of the JAX
-    package's ``initial_state``."""
+    package's ``initial_state``, on ``device`` (the CUDA card unless the
+    caller names another; raises without a card)."""
+    device = resolve_device(device)
     h, w = settings.output_size
     rh, rw = settings.render_size
     taa_hw = (2 * rh, 2 * rw) if settings.upscale.mode == UpscaleMode.SMAA_TU4X else (rh, rw)

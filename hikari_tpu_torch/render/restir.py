@@ -33,7 +33,7 @@ class Sample:
     sample_normal: torch.Tensor  # (..., 3)
 
     @staticmethod
-    def zeros(shape, device="cpu") -> "Sample":
+    def zeros(shape, device) -> "Sample":
         def z(c):
             return torch.zeros(tuple(shape) + (c,), device=device)
 
@@ -72,7 +72,7 @@ class Reservoir:
     w2_sum: torch.Tensor
 
     @staticmethod
-    def zeros(shape, device="cpu") -> "Reservoir":
+    def zeros(shape, device) -> "Reservoir":
         z = torch.zeros(tuple(shape), device=device)
         return Reservoir(s=Sample.zeros(shape, device), count=z, lifetime=z, w=z, w_sum=z, w2_sum=z)
 

@@ -26,7 +26,7 @@ class GBuffer:
     velocity_uv: torch.Tensor  # (h, w, 4) screen velocity xy + surface uv
 
     @staticmethod
-    def zeros(shape_hw, device="cpu") -> "GBuffer":
+    def zeros(shape_hw, device) -> "GBuffer":
         h, w = shape_hw
 
         def z(c):

@@ -13,10 +13,17 @@ from __future__ import annotations
 import numpy as np
 
 
-def build_alias_table(areas: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """areas: (N,) -> (prob (N,) f32, index (N,) i32). The numpy builder
-    only: the C++ builder of the JAX package is not ported yet."""
-    return build_alias_table_numpy(np.asarray(areas, dtype=np.float32))
+def build_alias_table(areas: np.ndarray, builder: str = "native") -> tuple[np.ndarray, np.ndarray]:
+    """areas: (N,) -> (prob (N,) f32, index (N,) i32). ``builder``:
+    "native" (the C++ pour of ``scene/native``) or "numpy"."""
+    areas = np.asarray(areas, dtype=np.float32)
+    if builder == "native":
+        from hikari_tpu_torch.scene import native
+
+        return native.get_builder().build_alias_table(areas)
+    if builder != "numpy":
+        raise ValueError(f"unknown alias-table builder {builder!r}")
+    return build_alias_table_numpy(areas)
 
 
 def build_alias_table_numpy(areas: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from hikari_tpu_torch.scene.compile import Scene, SceneArrays, compile_scene
+from hikari_tpu_torch.utils import resolve_device
 
 
 def _round_up(n: int, m: int) -> int:
@@ -123,16 +124,19 @@ def _pad(arr: np.ndarray, n: int, fill=0) -> np.ndarray:
 
 def to_device(
     arrays: SceneArrays,
-    device="cpu",
+    device=None,
     tri_pad: int = 128,
     node_pad: int = 128,
 ) -> SceneBuffers:
-    """Pad + upload compiled scene arrays to ``device``. Takes any object
-    with ``SceneArrays``' numpy fields — the JAX package's compile output
+    """Pad + upload compiled scene arrays to ``device`` (the CUDA card
+    unless the caller names another). Takes any object with
+    ``SceneArrays``' numpy fields — the JAX package's compile output
     included, which is how the tests feed one compiled scene to both
     packages. Padded triangles are degenerate (guaranteed miss); padded
     nodes are unreachable."""
     from hikari_tpu_torch.trace.intersect import precompute_triangles
+
+    device = resolve_device(device)
 
     num_tris = len(arrays.tri_world)
     num_nodes = len(arrays.node_entry)
@@ -234,19 +238,24 @@ def to_device(
     )
 
 
-def build_scene_buffers(scene: Scene, device="cpu", **pad_kw) -> SceneBuffers:
-    """Convenience: full host compile + upload."""
-    return to_device(compile_scene(scene), device, **pad_kw)
+def build_scene_buffers(scene: Scene, device=None, builder: str = "native", **pad_kw) -> SceneBuffers:
+    """Convenience: full host compile (with ``builder``) + upload to
+    ``device`` (the CUDA card unless the caller names another)."""
+    device = resolve_device(device)
+    return to_device(compile_scene(scene, builder), device, **pad_kw)
 
 
-def frame_state_from_numpy(state, device="cpu"):
+def frame_state_from_numpy(state, device=None):
     """Build the port's ``FrameState`` from any object with the same
     nested field names whose leaves convert with ``np.asarray`` — e.g. the
     JAX package's ``FrameState`` — so both packages can start from one
     mid-sequence state. dtypes (f16 reservoir storage included) carry
-    over unchanged."""
+    over unchanged. The state lands on ``device``, the CUDA card unless
+    the caller names another."""
     from hikari_tpu_torch.render.restir import Reservoir, Sample
     from hikari_tpu_torch.render.types import FrameState, GBuffer
+
+    device = resolve_device(device)
 
     def arr(x):
         return torch.from_numpy(np.array(x)).to(device)

@@ -28,9 +28,10 @@ Traversal contract (identical control flow to light.wgsl:400-440):
         else:
             index = exit[index]           # skip subtree
 
-This is the numpy builder of ``hikari_tpu.scene.bvh``; the JAX package's
-C++ builder (same algorithm) is not ported yet, so triangle order here
-equals the JAX package's numpy path.
+Two builders run the same algorithm: the C++ one (``scene/native``, the
+default, as in the JAX package wherever its toolchain builds) and the numpy
+one here. Their leaf orders can differ, and a compiled scene's triangle
+order follows the BVH, so the caller names the builder.
 """
 
 from __future__ import annotations
@@ -66,10 +67,20 @@ class FlatBvh:
         return FlatBvh(z3, z3.copy(), zi, zi.copy(), zi.copy())
 
 
-def build_flat_bvh(mins: np.ndarray, maxs: np.ndarray) -> FlatBvh:
+BUILDERS = ("native", "numpy")
+
+
+def build_flat_bvh(mins: np.ndarray, maxs: np.ndarray, builder: str = "native") -> FlatBvh:
     """Build a binned-SAH binary BVH over primitive AABBs and flatten it
     depth-first into entry/exit form. One primitive per leaf (matching the
-    reference's bvh-crate leaves)."""
+    reference's bvh-crate leaves). ``builder``: "native" (C++, raises if
+    g++ cannot build it) or "numpy"."""
+    if builder == "native":
+        from hikari_tpu_torch.scene import native
+
+        return native.get_builder().build(mins, maxs)
+    if builder != "numpy":
+        raise ValueError(f"unknown BVH builder {builder!r}; expected one of {BUILDERS}")
     return build_flat_bvh_numpy(mins, maxs)
 
 

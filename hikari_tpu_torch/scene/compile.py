@@ -211,10 +211,12 @@ def _build_texture_atlas(scene: Scene):
     return build_texture_atlas(scene.textures)
 
 
-def compile_scene(scene: Scene) -> SceneArrays:
+def compile_scene(scene: Scene, builder: str = "native") -> SceneArrays:
     """Run the full host scene compile (reference Extract/Prepare stages,
     SURVEY.md §3.2): triangulate -> world transform -> BLAS per instance ->
-    TLAS -> stitch -> emissive detection -> alias tables -> emissive BVH."""
+    TLAS -> stitch -> emissive detection -> alias tables -> emissive BVH.
+    ``builder`` ("native" or "numpy") builds every BVH and alias table; the
+    triangle order follows it."""
     insts = scene.instances
     num_inst = len(insts)
     if num_inst == 0:
@@ -241,7 +243,7 @@ def compile_scene(scene: Scene) -> SceneArrays:
 
         lo = tris.min(axis=1)
         hi = tris.max(axis=1)
-        blas = build_flat_bvh(lo, hi)
+        blas = build_flat_bvh(lo, hi, builder)
         # Reorder this instance's triangles into the BLAS's depth-first
         # leaf order: the SAH tree is spatially coherent, so the tracer
         # backends' fixed 128-triangle clusters (trace/tiled.py,
@@ -289,7 +291,7 @@ def compile_scene(scene: Scene) -> SceneArrays:
     inst_prim_count = np.asarray(inst_prim_count, dtype=np.int32)
 
     # --- stitch TLAS + per-instance BLAS into one node graph ---
-    tlas = build_flat_bvh(inst_min, inst_max)
+    tlas = build_flat_bvh(inst_min, inst_max, builder)
     tlas_count = tlas.count
     blas_offsets = np.zeros(num_inst, dtype=np.int32)
     total = tlas_count
@@ -366,7 +368,7 @@ def compile_scene(scene: Scene) -> SceneArrays:
         # values are instance-local PERMUTED prim ids (sampling converts
         # them to global ids via inst_prim_offset, render/sampling.py:212).
         areas = mesh.triangle_areas(inst.transform)[inst_perm[inst_id]]
-        prob, index = build_alias_table(areas)
+        prob, index = build_alias_table(areas, builder)
         em_emissive.append(emissive)
         center = 0.5 * (inst_min[inst_id] + inst_max[inst_id])
         diag = inst_max[inst_id] - inst_min[inst_id]
@@ -384,7 +386,7 @@ def compile_scene(scene: Scene) -> SceneArrays:
         em_position_a = np.asarray(em_position, dtype=np.float32)
         em_radius_a = np.asarray(em_radius, dtype=np.float32)
         ebvh = build_flat_bvh(
-            em_position_a - em_radius_a[:, None], em_position_a + em_radius_a[:, None]
+            em_position_a - em_radius_a[:, None], em_position_a + em_radius_a[:, None], builder
         )
         enode_min, enode_max = ebvh.mins, ebvh.maxs
         enode_entry, enode_exit = ebvh.entry, ebvh.exit

@@ -90,6 +90,16 @@ def quad_mesh(size: float = 1.0) -> Mesh:
     return Mesh(positions, normals, uvs, indices)
 
 
+def plane_mesh(size: float = 1.0) -> Mesh:
+    """A plane in the XZ plane facing +Y (bevy ``shape::Plane``)."""
+    h = size / 2.0
+    positions = [[-h, 0, -h], [h, 0, -h], [h, 0, h], [-h, 0, h]]
+    normals = [[0, 1, 0]] * 4
+    uvs = [[0, 0], [1, 0], [1, 1], [0, 1]]
+    indices = [[0, 2, 1], [0, 3, 2]]
+    return Mesh(positions, normals, uvs, indices)
+
+
 def cube_mesh(size: float = 1.0) -> Mesh:
     """An axis-aligned cube with per-face normals (bevy ``shape::Cube``)."""
     h = size / 2.0
@@ -110,4 +120,90 @@ def cube_mesh(size: float = 1.0) -> Mesh:
         uvs.extend([[0, 1], [1, 1], [1, 0], [0, 0]])
         indices.append([base, base + 1, base + 2])
         indices.append([base, base + 2, base + 3])
+    return Mesh(positions, normals, uvs, indices)
+
+
+def building_mesh(
+    floors: int = 8, cols: int = 5, seed: int = 0
+) -> Mesh:
+    """A detailed tower in the unit cube [-0.5, 0.5]^3: a base box plus a
+    (cols x floors) grid of protruding window boxes on all four facades —
+    12 + 48*floors*cols triangles (floors=8, cols=5: 1932). The geometry
+    class the reference's City stage exercises (examples/city.rs:
+    streamed building models with facade detail), built procedurally so
+    the acceptance config reaches reference scale (>=500k tris) without
+    the absent City scene.bin. Fully vectorized construction."""
+    rng = np.random.default_rng(seed)
+    base = cube_mesh(1.0)
+    tpl_p = np.asarray(base.positions, dtype=np.float64)  # (24, 3)
+    tpl_n = np.asarray(base.normals, dtype=np.float64)
+    tpl_uv = np.asarray(base.uvs, dtype=np.float64)
+    tpl_i = np.asarray(base.indices, dtype=np.int64)  # (12, 3)
+
+    # Window boxes: centers on a facade grid, protruding 0.02 outward.
+    w = 0.7 / cols * 0.55  # window width (x or z extent along facade)
+    h = 0.8 / floors * 0.5  # window height
+    d = 0.04  # protrusion depth
+    xs = (np.arange(cols) + 0.5) / cols - 0.5  # facade-local centers
+    ys = (np.arange(floors) + 0.5) / floors - 0.5
+    gx, gy = np.meshgrid(xs * 0.9, ys * 0.9, indexing="ij")
+    gx = gx.ravel()
+    gy = gy.ravel()
+    jitter = rng.uniform(0.9, 1.0, size=gx.size)
+    scales, centers = [], []
+    for face in range(4):
+        # faces: +z, -z, +x, -x
+        if face < 2:
+            s = np.stack([np.full_like(gx, w), np.full_like(gx, h),
+                          np.full_like(gx, d)], axis=-1)
+            c = np.stack([gx, gy, np.where(face == 0, 0.5, -0.5)
+                          * np.ones_like(gx)], axis=-1)
+        else:
+            s = np.stack([np.full_like(gx, d), np.full_like(gx, h),
+                          np.full_like(gx, w)], axis=-1)
+            c = np.stack([np.where(face == 2, 0.5, -0.5)
+                          * np.ones_like(gx), gy, gx], axis=-1)
+        s = s * jitter[:, None]
+        scales.append(s)
+        centers.append(c)
+    scales = np.concatenate(scales)  # (N, 3)
+    centers = np.concatenate(centers)
+    n_boxes = scales.shape[0]
+
+    pos = tpl_p[None] * scales[:, None] + centers[:, None]  # (N, 24, 3)
+    nrm = np.broadcast_to(tpl_n[None], pos.shape)
+    uv = np.broadcast_to(tpl_uv[None], (n_boxes, 24, 2))
+    idx = tpl_i[None] + 24 * np.arange(1, n_boxes + 1)[:, None, None]
+
+    positions = np.concatenate([tpl_p, pos.reshape(-1, 3)])
+    normals = np.concatenate([tpl_n, nrm.reshape(-1, 3)])
+    uvs = np.concatenate([tpl_uv, uv.reshape(-1, 2)])
+    indices = np.concatenate([tpl_i, idx.reshape(-1, 3)])
+    return Mesh(positions, normals, uvs, indices)
+
+
+def uv_sphere_mesh(radius: float = 1.0, sectors: int = 36, stacks: int = 18) -> Mesh:
+    """A UV sphere (bevy ``shape::UVSphere``-like)."""
+    positions, normals, uvs = [], [], []
+    for i in range(stacks + 1):
+        phi = np.pi * i / stacks  # 0..pi from +Y pole
+        for j in range(sectors + 1):
+            theta = 2.0 * np.pi * j / sectors
+            n = [
+                np.sin(phi) * np.cos(theta),
+                np.cos(phi),
+                np.sin(phi) * np.sin(theta),
+            ]
+            positions.append([radius * c for c in n])
+            normals.append(n)
+            uvs.append([j / sectors, i / stacks])
+    indices = []
+    for i in range(stacks):
+        for j in range(sectors):
+            a = i * (sectors + 1) + j
+            b = a + sectors + 1
+            if i != 0:
+                indices.append([a, b, a + 1])
+            if i != stacks - 1:
+                indices.append([a + 1, b, b + 1])
     return Mesh(positions, normals, uvs, indices)

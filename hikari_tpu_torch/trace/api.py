@@ -1,12 +1,19 @@
 """Ray-tracing API: closest-hit queries over the compiled scene — the port
 of ``hikari_tpu.trace.api``.
 
-Every query goes through one search, ``trace/closest_hit.closest_hit``:
-the CUDA kernel for CUDA tensors, its plain twin for CPU tensors. The
-search is not differentiable (it returns integer hit ids plus detached
-(t, u, v)); ``refine_hit`` / ``hit_info`` recompute (t, u, v) at the fixed
-hit triangle from ``scene.tri_world``, so gradients reach the vertices
-through them, as in the JAX package.
+Two searches, each a hand-written CUDA kernel for CUDA tensors and its
+plain twin for CPU tensors:
+
+* ``trace/closest_hit.closest_hit`` tests every triangle (K1/K1b): the
+  small-scene search, up to ``bruteforce_max_tris`` triangles;
+* ``trace/tile_walk.trace_tile_walk`` (K2): rays sorted into 512-ray tiles
+  by direction octant and origin Morton cell, each tile walking its
+  triangle clusters near to far — above that size.
+
+The searches are not differentiable (they return integer hit ids plus
+detached (t, u, v)); ``refine_hit`` / ``hit_info`` recompute (t, u, v) at
+the fixed hit triangle from ``scene.tri_world``, so gradients reach the
+vertices through them, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,21 +27,22 @@ from hikari_tpu_torch.diff import clip_gradient
 from hikari_tpu_torch.scene.buffers import SceneBuffers
 from hikari_tpu_torch.trace.closest_hit import closest_hit, pack_triangles
 from hikari_tpu_torch.trace.intersect import intersects_triangle
+from hikari_tpu_torch.trace.tiled import TILE_R
+from hikari_tpu_torch.trace.tile_walk import pack_clusters, trace_tile_walk
 from hikari_tpu_torch.utils import safe_normalize
 
 # trace_rays calls whose rays lay on a CUDA device (each is one kernel
-# launch, so a run can check every trace went through the kernel).
+# launch, so a run can check every trace went through a kernel).
 trace_calls = 0
 
 # Backends of the JAX package that have no port yet, with the ROADMAP item
 # that ports them.
 _NOT_PORTED = {
-    "tiled": "queue 1, 'Large-scene tracing' (trace/tiled.py)",
-    "pallas_tiled": "queue 2, kernel K2 (trace/pallas_tiled.py)",
-    "bvh": "queue 1, 'Large-scene tracing' (lockstep BVH walk)",
+    "tiled": "queue 1, 'Large-scene leftovers' (trace/tiled.py trace_tiled)",
+    "bvh": "queue 1, 'Large-scene leftovers' (lockstep BVH walk)",
     "scatter": "queue 2, kernel K3 (trace/scatter.py)",
 }
-_SEARCH_METHODS = ("auto", "auto_xla", "pallas", "bruteforce")
+_SEARCH_METHODS = ("auto", "auto_xla", "pallas", "bruteforce", "pallas_tiled")
 
 
 @dataclass(frozen=True)
@@ -67,16 +75,18 @@ def trace_rays(
     max_steps: int = 0,
 ) -> Hit:
     """Closest-hit query. origin/direction: (...,3). Optional per-ray
-    scalars (broadcast to the ray shape): max_distance, exclude_instance
-    (i32, -1 = none), and a primitive id range [range_lo, range_hi).
-    ``early_distance`` and ``max_steps`` only steer the large-scene
-    backends of the JAX package and are ignored by the closest-hit search.
+    scalars (broadcast to the ray shape): max_distance, early_distance
+    (the tile walk may stop a ray at any hit nearer than it: an any-hit
+    query for shadow rays), exclude_instance (i32, -1 = none), and a
+    primitive id range [range_lo, range_hi). ``max_steps`` only steers the
+    JAX package's BVH walk and is ignored.
 
-    Dispatch: "auto"/"auto_xla"/"pallas"/"bruteforce" run the closest-hit
-    search — the kernel on CUDA, its twin on CPU. On CUDA, "auto" above
-    ``bruteforce_max_tris`` triangles (the JAX package's switch to its
-    tile-walk kernel) raises NotImplementedError, as do the backends that
-    are not ported; a forced "pallas" runs the kernel at any size."""
+    Dispatch, the JAX package's choice on its TPU: "auto"/"auto_xla" test
+    every triangle (K1) up to ``bruteforce_max_tris`` triangles and walk
+    tiles (K2) above; "pallas" and "bruteforce" always test every
+    triangle; "pallas_tiled" always walks tiles. Each runs its kernel on
+    CUDA and its twin on the CPU. "tiled", "bvh" and "scatter" are not
+    ported yet and raise NotImplementedError."""
     global trace_calls
     if method in _NOT_PORTED:
         raise NotImplementedError(
@@ -84,18 +94,12 @@ def trace_rays(
         )
     if method not in _SEARCH_METHODS:
         raise ValueError(f"unknown trace method {method!r}")
+    if method in ("auto", "auto_xla"):
+        method = "pallas_tiled" if scene.num_tris > bruteforce_max_tris else "pallas"
     shape = origin.shape[:-1]
     o = origin.detach().reshape(-1, 3).to(torch.float32).contiguous()
     d = direction.detach().reshape(-1, 3).to(torch.float32).contiguous()
     R, dev = o.shape[0], o.device
-    cuda = dev.type == "cuda"
-    if cuda and method in ("auto", "auto_xla") and scene.num_tris > bruteforce_max_tris:
-        raise NotImplementedError(
-            f"{scene.num_tris} triangles > bruteforce_max_tris={bruteforce_max_tris}: the "
-            "JAX package switches to its tile-walk kernel here, which is not ported yet "
-            f"(ROADMAP.md {_NOT_PORTED['pallas_tiled']}); force method='pallas' to test "
-            "every triangle"
-        )
 
     def per_ray(x, default, dtype):
         if x is None:
@@ -108,9 +112,13 @@ def trace_rays(
     lo = per_ray(range_lo, 0, torch.int32)
     hi = per_ray(range_hi, scene.num_tris, torch.int32)
 
-    if cuda and R:
+    if dev.type == "cuda" and R:
         trace_calls += 1
-    t, prim, u, v = closest_hit(o, d, maxd, excl, lo, hi, pack_triangles(scene))
+    if method == "pallas_tiled":
+        early = per_ray(early_distance, 0.0, torch.float32)
+        t, prim, u, v = _trace_tile_walk(scene, o, d, maxd, early, excl, lo, hi)
+    else:
+        t, prim, u, v = closest_hit(o, d, maxd, excl, lo, hi, pack_triangles(scene))
     inst = torch.where(prim >= 0, scene.tri_inst[prim.clamp(min=0)], -1).to(torch.int32)
     return Hit(
         t=t.reshape(shape),
@@ -119,6 +127,79 @@ def trace_rays(
         u=u.reshape(shape),
         v=v.reshape(shape),
     )
+
+
+def tile_cluster_rule(num_tris: int) -> tuple[int, bool]:
+    """(cluster size, use_skip) of the tile walk for a padded triangle
+    count — the JAX package's per-scene rule (trace/api.py
+    _trace_pallas_tiled): 64 without the skip below 32,768 triangles, 128
+    with it below 262,144, else 256 with it; doubled while there are more
+    than 16,384 clusters."""
+    if num_tris < 32768:
+        cluster, use_skip = 64, False
+    elif num_tris < 262144:
+        cluster, use_skip = 128, True
+    else:
+        cluster, use_skip = 256, True
+    while -(-num_tris // cluster) > 16384:
+        cluster *= 2
+    return cluster, use_skip
+
+
+def _morton3(q):
+    """Interleave 6-bit per-axis cells (..., 3) i32 -> 18-bit Morton."""
+
+    def spread(x):
+        x = (x | (x << 10)) & 0x0300F00F
+        x = (x | (x << 4)) & 0x030C30C3
+        x = (x | (x << 2)) & 0x09249249
+        return x
+
+    return (spread(q[..., 0]) << 2) | (spread(q[..., 1]) << 1) | spread(q[..., 2])
+
+
+def ray_sort_order(scene: SceneBuffers, o, d):
+    """The permutation that sorts rays into tiles: by direction octant,
+    then by the origin's 6-bit-per-axis Morton cell over the scene's
+    instance bounds (stable, so equal keys keep ray order)."""
+    octant = (
+        (d[:, 0] < 0).to(torch.int32) * 4
+        + (d[:, 1] < 0).to(torch.int32) * 2
+        + (d[:, 2] < 0).to(torch.int32)
+    )
+    smin = scene.inst_min.amin(dim=0)
+    smax = scene.inst_max.amax(dim=0)
+    cell = torch.clamp((o - smin) / torch.clamp(smax - smin, min=1e-6) * 63.0, 0.0, 63.0)
+    key = (octant << 18) | _morton3(cell.to(torch.int32))
+    return torch.argsort(key, stable=True)
+
+
+def _trace_tile_walk(scene: SceneBuffers, o, d, maxd, early, excl, lo, hi):
+    """Sort the rays into tiles, pad to whole tiles with inert rays
+    (maxd = 0, hi = 0: no cluster entry, never open), walk, and put the
+    hits back in ray order."""
+    cluster, use_skip = tile_cluster_rule(scene.tri_n.shape[0])
+    R = o.shape[0]
+    order = ray_sort_order(scene, o, d)
+    pad = -(-R // TILE_R) * TILE_R - R
+
+    def tiles(x, fill):
+        x = x[order]
+        if pad:
+            x = torch.cat([x, torch.full((pad,) + x.shape[1:], fill, dtype=x.dtype, device=x.device)])
+        return x.contiguous()
+
+    packed, cmin, cmax, cvalid = pack_clusters(scene, cluster)
+    t, prim, u, v, _ = trace_tile_walk(
+        packed, cmin, cmax, cvalid, tiles(o, 0.0), tiles(d, 1.0), tiles(maxd, 0.0),
+        tiles(early, 0.0), tiles(excl, -1), tiles(lo, 0), tiles(hi, 0), cluster, use_skip,
+    )
+    out = []
+    for x in (t, prim, u, v):
+        y = torch.empty((R,), dtype=x.dtype, device=x.device)
+        y[order] = x[:R]
+        out.append(y)
+    return out
 
 
 # ---------------------------------------------------------------------------

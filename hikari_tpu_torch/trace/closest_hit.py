@@ -10,22 +10,20 @@ Tie rule (kernel and twin): among pairs with equal t the lowest prim id
 wins — the JAX brute-force path's rule (see the note in the kernel source).
 
 The kernel is built at first use from the repo's source with ``nvcc``
-into ``hikari_tpu_torch/_build/`` and bound through ctypes (a plain C
-interface builds in seconds; a PyTorch extension takes minutes).
+into ``hikari_tpu_torch/_build/`` and bound through ctypes
+(``utils/nvcc.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import time
 from pathlib import Path
 
 import torch
 
 from hikari_tpu_torch.config import F32_EPSILON, F32_MAX
+from hikari_tpu_torch.utils.nvcc import build_library, check_kernel_arg
 
 # Kernel launches made by ``closest_hit`` (one per call on CUDA tensors).
 launches = 0
@@ -34,31 +32,20 @@ PACK_WIDTH = 16
 # Pairs per chunk of the twin: bounds its (rays x triangles) temporaries.
 RAY_CHUNK_PAIRS = 1 << 22
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "closest_hit.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = [
-    "-gencode=arch=compute_90a,code=sm_90a",
-    "-std=c++17",
-    "-O3",
-    "-fmad=false",
-    "-Xptxas=-v",
-    "-shared",
-    "-Xcompiler",
-    "-fPIC",
-]
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "closest_hit.cu"
 
 _lib = None
 # ptxas report of the last build (registers, shared memory, spills).
 build_log = ""
 
 
-def pack_triangles(scene) -> torch.Tensor:
-    """(num_tris, 16) float32 rows: n(3) eu(3) ev(3) cn cu cv valid
+def pack_triangles(scene, count: int | None = None) -> torch.Tensor:
+    """(count, 16) float32 rows: n(3) eu(3) ev(3) cn cu cv valid
     inst(int32 bits) pad(2) — one 64-byte row per triangle, the layout of
     ``hikari_tpu.trace.pallas_kernel.pack_triangles`` with the instance id
-    kept as integer bits. Padding rows past ``num_tris`` are dropped."""
-    P = int(scene.num_tris)
+    kept as integer bits. ``count`` defaults to ``num_tris``: padding rows
+    past it are dropped."""
+    P = int(scene.num_tris if count is None else count)
     inst = scene.tri_inst[:P].to(torch.int32).contiguous().view(torch.float32)
     return torch.cat(
         [
@@ -136,11 +123,6 @@ def closest_hit_reference(o, d, maxd, excl, lo, hi, packed):
     return t_out, prim_out, u_out, v_out
 
 
-def _library_path() -> Path:
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libclosest_hit_{key[:16]}.so"
-
-
 def build() -> float:
     """Compile (if needed) and load the kernel library; returns the
     seconds spent. Raises if nvcc is missing or the build fails."""
@@ -148,23 +130,7 @@ def build() -> float:
     if _lib is not None:
         return 0.0
     start = time.perf_counter()
-    path = _library_path()
-    if not path.exists():
-        from torch.utils.cpp_extension import CUDA_HOME
-
-        nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
-        if nvcc is None or not os.path.exists(nvcc):
-            raise RuntimeError("nvcc not found: the closest-hit kernel needs the CUDA toolkit")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)], capture_output=True, text=True
-        )
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {SOURCE.name}:\n{build_log}")
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(str(path))
+    lib, build_log = build_library(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.hikari_closest_hit.argtypes = [ptr] * 7 + [i32, i32] + [ptr] * 5
     lib.hikari_closest_hit.restype = i32
@@ -172,17 +138,6 @@ def build() -> float:
     lib.hikari_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib
     return time.perf_counter() - start
-
-
-def _check(name, x, dtype, shape, device):
-    if x.device != device:
-        raise ValueError(f"closest_hit: {name} is on {x.device}, rays on {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"closest_hit: {name} must be {dtype}, got {x.dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"closest_hit: {name} must have shape {shape}, got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"closest_hit: {name} must be contiguous")
 
 
 def closest_hit(o, d, maxd, excl, lo, hi, packed):
@@ -196,12 +151,16 @@ def closest_hit(o, d, maxd, excl, lo, hi, packed):
         raise NotImplementedError(f"closest_hit: no kernel for device {o.device}")
     R, P = o.shape[0], packed.shape[0]
     dev = o.device
-    _check("o", o, torch.float32, (R, 3), dev)
-    _check("d", d, torch.float32, (R, 3), dev)
-    _check("maxd", maxd, torch.float32, (R,), dev)
-    for name, x in (("excl", excl), ("lo", lo), ("hi", hi)):
-        _check(name, x, torch.int32, (R,), dev)
-    _check("packed", packed, torch.float32, (P, PACK_WIDTH), dev)
+    for name, x, dtype, shape in (
+        ("o", o, torch.float32, (R, 3)),
+        ("d", d, torch.float32, (R, 3)),
+        ("maxd", maxd, torch.float32, (R,)),
+        ("excl", excl, torch.int32, (R,)),
+        ("lo", lo, torch.int32, (R,)),
+        ("hi", hi, torch.int32, (R,)),
+        ("packed", packed, torch.float32, (P, PACK_WIDTH)),
+    ):
+        check_kernel_arg("closest_hit", name, x, dtype, shape, dev)
     if packed.data_ptr() % 16:
         raise ValueError("closest_hit: packed must be 16-byte aligned")
     if R >= 2**31 or P >= 2**31 // PACK_WIDTH:

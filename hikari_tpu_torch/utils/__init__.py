@@ -20,6 +20,17 @@ PI = 3.1415926
 _U32 = 0xFFFFFFFF
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the caller's, else the CUDA card.
+    Without a card and without a device named it raises; the port never
+    falls back to the CPU in silence."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
 def luminance(v):
     """Rec.709 luminance (reference src/shaders/utils.wgsl:62-65).
     ``v``: (..., 3) -> (...)."""

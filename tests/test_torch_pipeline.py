@@ -66,7 +66,7 @@ def world():
 
     scene, jcam, _ = j_cornell()
     arrays = compile_scene(scene)
-    return dict(jb=j_dev(arrays), tb=t_dev(arrays, "cpu"), jcam=jcam, tcam=t_cornell()[1],
+    return dict(jb=j_dev(arrays), tb=t_dev(arrays, "cpu"), jcam=jcam, tcam=t_cornell(device="cpu")[1],
                 js=_settings(jc), ts=_settings(tc))
 
 
@@ -140,7 +140,7 @@ def _pass_inputs(world, state):
     reservoirs of ``state`` (decompressed), converted for the port."""
     frame = int(state.frame_number)
     gb = jax.jit(lambda b: j_gbuffer(b, world["jcam"], jnp.int32(frame), world["js"]))(world["jb"])
-    tstate = frame_state_from_numpy(state)
+    tstate = frame_state_from_numpy(state, "cpu")
     return frame, gb, _gbuffer_from_jax(gb), state, tstate
 
 
@@ -216,7 +216,7 @@ def test_render_frame_matches(world, jax_states, frame):
     state = jax_states[frame]
     jo, jnext = j_render(world["jb"], world["jcam"], state, world["js"])
     with torch.no_grad():
-        to, tnext = t_render(world["tb"], world["tcam"], frame_state_from_numpy(state), world["ts"])
+        to, tnext = t_render(world["tb"], world["tcam"], frame_state_from_numpy(state, "cpu"), world["ts"])
     assert to.image.shape == (H, W, 4) and bool(torch.isfinite(to.image).all())
     for name in ("image", "tonemapped", "albedo", "direct", "emissive", "indirect"):
         assert_image_close(getattr(to, name), getattr(jo, name), name)
@@ -255,15 +255,46 @@ def test_render_frame_rejects_unported(world, override):
 
     settings = world["ts"].replace(**override)
     with pytest.raises(NotImplementedError, match="not ported"):
-        t_render(world["tb"], world["tcam"], initial_state(world["ts"]), settings)
+        t_render(world["tb"], world["tcam"], initial_state(world["ts"], "cpu"), settings)
 
 
 def test_state_roundtrip_keeps_device():
     """``map_tensors`` moves a whole frame state and keeps host ints."""
     from hikari_tpu_torch.render.pipeline import initial_state
 
-    st = initial_state(_settings(tc))
+    st = initial_state(_settings(tc), "cpu")
     moved = map_tensors(lambda x: x.to(torch.float64) if x.is_floating_point() else x, st)
     assert moved.frame_number == 0
     assert moved.prev_gbuffer.position.dtype == torch.float64
     assert moved.direct_temporal.s.visible_instance.dtype == torch.int32
+
+
+@pytest.mark.parametrize(
+    "entry",
+    ["initial_state", "build_scene_buffers", "to_device", "frame_state_from_numpy",
+     "cornell_config", "city_config", "camera"],
+)
+def test_entry_points_default_to_card(world, jax_states, entry):
+    """The port's entry points run on the CUDA card unless the caller asks
+    for another device: without a card, a call that names no device
+    raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present, so the default is valid here")
+    from hikari_tpu.io.scenes import cornell_box_scene
+    from hikari_tpu.scene.compile import compile_scene
+    from hikari_tpu_torch.io import scenes
+    from hikari_tpu_torch.render.camera import Camera
+    from hikari_tpu_torch.render.pipeline import initial_state
+    from hikari_tpu_torch.scene.buffers import build_scene_buffers, to_device
+
+    calls = {
+        "initial_state": lambda: initial_state(world["ts"]),
+        "build_scene_buffers": lambda: build_scene_buffers(scenes.cornell_box_scene()),
+        "to_device": lambda: to_device(compile_scene(cornell_box_scene())),
+        "frame_state_from_numpy": lambda: frame_state_from_numpy(jax_states[0]),
+        "cornell_config": lambda: scenes.cornell_config(),
+        "city_config": lambda: scenes.city_config(),
+        "camera": lambda: Camera.from_lookat(eye=(0.0, 1.0, 4.0), target=(0.0, 1.0, 0.0)),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()

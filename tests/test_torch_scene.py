@@ -31,7 +31,7 @@ def test_bvh_numpy_equal(n):
     rng = np.random.default_rng(n)
     lo = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
     hi = lo + rng.uniform(0.01, 1.0, (n, 3)).astype(np.float32)
-    want, got = jbuild(lo, hi), build_flat_bvh(lo, hi)
+    want, got = jbuild(lo, hi), build_flat_bvh(lo, hi, "numpy")
     validate_flat_bvh(got, n)
     for f in ("mins", "maxs", "entry", "exit", "inst"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
@@ -42,7 +42,7 @@ def test_alias_table_numpy_equal():
     from hikari_tpu_torch.scene.alias import alias_sample_pdf, build_alias_table
 
     areas = np.random.default_rng(2).uniform(0.01, 3.0, 97).astype(np.float32)
-    prob, index = build_alias_table(areas)
+    prob, index = build_alias_table(areas, "numpy")
     jprob, jindex = jalias(areas)
     np.testing.assert_array_equal(prob, jprob)
     np.testing.assert_array_equal(index, jindex)
@@ -58,7 +58,7 @@ def test_compile_scene_matches(monkeypatch):
     from hikari_tpu_torch.io.scenes import cornell_box_scene as tscene
     from hikari_tpu_torch.scene.compile import compile_scene as tcompile
 
-    want, got = jcompile(jscene()), tcompile(tscene())
+    want, got = jcompile(jscene()), tcompile(tscene(), "numpy")
     names = [f.name for f in dataclasses.fields(want)]
     assert names == [f.name for f in dataclasses.fields(got)]
     for name in names:
@@ -133,7 +133,7 @@ def test_frame_state_from_numpy_roundtrip():
     kw = dict(width=20, height=12, reservoir_f16=True)
     jstate = jinit(JS(**kw))
     jstate = jax.tree_util.tree_map(lambda x: x + jnp.ones((), x.dtype), jstate)
-    got = frame_state_from_numpy(jstate)
+    got = frame_state_from_numpy(jstate, "cpu")
     assert got.frame_number == 1
     leaves = []
     map_tensors(leaves.append, got)
@@ -145,5 +145,5 @@ def test_frame_state_from_numpy_roundtrip():
     # The port's own initial state has the JAX shapes and dtypes.
     want = [np.asarray(x) for x in jax.tree_util.tree_leaves(jinit(JS(**kw)))][1:]
     mine = []
-    map_tensors(mine.append, tinit(TS(**kw)))
+    map_tensors(mine.append, tinit(TS(**kw), "cpu"))
     assert [(a.shape, a.dtype) for a in want] == [(tuple(b.shape), b.numpy().dtype) for b in mine]

@@ -186,7 +186,7 @@ def test_soup_matches_jax(soup):
     np.testing.assert_array_equal(auto.prim.numpy(), th.prim.numpy())
 
 
-@pytest.mark.parametrize("method", ["tiled", "pallas_tiled", "bvh", "scatter"])
+@pytest.mark.parametrize("method", ["tiled", "bvh", "scatter"])
 def test_unported_backends_raise(cornell, method):
     _, tb = cornell
     o, d = _rays(8, 7)
