@@ -5,28 +5,38 @@
 
 Phases, each reported on its own line:
   1. [device] require CUDA; print the card and its power limit.
-  2. [build] compile both kernels from csrc/ with nvcc (closest_hit.cu,
-     tile_walk.cu) and the C++ BVH builder with g++, all at once; print
-     each build time and ptxas' registers, shared memory and spills.
-  3. cornell_path. [kernel]/[time]: the closest-hit kernel against its
-     plain twin on the card, (a) on the 1080p cornell primary rays, (b) on
-     a random 5120-triangle soup with exclusion and prim ranges; prim
-     equal, t/u/v within ATOL; CUDA-event times at (a) beside the bound.
-     [main]: 8 frames of cornell at 1920x1080 without the post chain
-     through ``render_frame``; every trace must go through the closest-hit
-     kernel, the image must be finite and lit. [check]: the same frames at
-     48x63 on the card and on the CPU (the plain twins) from one state.
-  4. city_path. [city]: host compile of the procedural city (550,994
+  2. [build] compile the three kernels from csrc/ with nvcc
+     (closest_hit.cu, tile_walk.cu, scatter_items.cu) and the C++ BVH
+     builder with g++, all at once; print each build time and ptxas'
+     registers, shared memory and spills.
+  3. cornell. [kernel]/[time]: the closest-hit kernel against its plain
+     twin on the card, (a) on the 1080p cornell primary rays, (b) on a
+     random 5120-triangle soup with exclusion and prim ranges; prim equal,
+     t/u/v within ATOL; CUDA-event times at (a) beside the bound. [main]:
+     8 frames of ``cornell_path`` (1920x1080 without the post chain) and of
+     ``cornell_bench`` (the bench frame: 1920x1080 output from 960x540 with
+     spatial reuse, denoise, SMAA TU4x and TAA) through ``render_frame``;
+     every trace must go through the closest-hit kernel, the image must be
+     finite and lit. [check]: 48x63 frames without the post chain on the
+     card and on the CPU (the plain twins) from one state.
+  4. city. [city]: host compile of the procedural city (550,994
      triangles). [kernel]/[time]: the tile-walk kernel against its twin,
      (c) on the city's 262,144 primary rays at 512x512, (d) on 65,536
      random rays in the city with random max/early distance, exclusion and
      one instance's prim range on half of them; prim and the clusters
      tested per tile equal, t/u/v within ATOL; CUDA-event times at (c) of
      the kernel, phase 1 with the sort, the whole ``trace_rays`` and the
-     twin, beside the kernel's bound. [main]: 8 frames at 512x512 without
-     the post chain; every trace must go through a kernel (for the city:
-     the tile walk). [check]: a small city (blocks=3, 18,422 triangles) at
-     48x63, card against CPU.
+     twin, beside the kernel's bound. The scatter kernel against its twin
+     on every item, (e) on the (c) rays, with its hits against the tile
+     walk's, (f) on the (d) rays; CUDA-event times at (e) of the kernel,
+     phases A+B, the segment-min, the whole ``trace_rays(method="scatter")``
+     and the twin, beside the kernel's bound. [main]: 8 frames of
+     ``city_path`` (512x512 without the post chain, every trace through the
+     tile walk) and of ``city_bench_scatter`` (the city bench frame: 512x512
+     output from 256x256 with the post chain and ``tracer="scatter"``,
+     every trace through the scatter kernel). [check]: a small city
+     (blocks=3, 18,422 triangles), card against CPU, at 48x63 without the
+     post chain and at 48x60 with the bench settings and the scatter tracer.
 ``--profile`` adds a torch.profiler breakdown of two more frames of each
 main path. The second-to-last lines are the kernel table as JSON and the
 card's nvidia-smi name/power limit; the last line is the result JSON. Any
@@ -47,6 +57,10 @@ FRAMES = 8
 CORNELL_HW = (1080, 1920)
 CITY_HW = (512, 512)
 SMALL_HW = (48, 63)
+SMALL_BENCH_HW = (48, 60)
+# K3 against K2 on the city primary rays: both are exact closest-hit
+# searches, but their tie rules differ (ROADMAP.md section 3).
+K2_K3_SHARE = 0.999
 # Peaks of one H100 SXM at 700 W (NVIDIA's data sheet): FP32 outside the
 # tensor cores and HBM3 bandwidth. A ray/triangle pair test is ~30 flops.
 PEAK_FP32 = 67e12
@@ -68,6 +82,18 @@ def path_settings(settings, width, height):
         indirect_spatial_reuse=False, emissive_spatial_reuse=False, emissive_lit=True,
         indirect_bounces=1, reservoir_f16=True, reproject="shift", remat=False,
         collect_stats=True, tracer="auto",
+    )
+
+
+def bench_settings(settings, width, height, tracer):
+    """The bench frame's settings (bench.py:77-116), forward only: the
+    config at the given output size, SMAA TU4x at 2x, TAA Jasmine,
+    denoise, one bounce, the config's spatial-reuse defaults."""
+    from hikari_tpu_torch.config import Taa, Upscale
+
+    return settings.replace(
+        width=width, height=height, upscale=Upscale.smaa_tu4x(2.0), taa=Taa.JASMINE, denoise=True,
+        indirect_bounces=1, reproject="shift", remat=False, collect_stats=True, tracer=tracer,
     )
 
 
@@ -111,7 +137,7 @@ def compare(name, got, want):
     if not err <= ATOL:
         raise AssertionError(f"{name}: t/u/v differ from the twin by {err} > {ATOL}")
     hits = int((prim >= 0).sum())
-    log(f"[kernel] {name}: {prim.numel()} rays, {hits} hits, prim equal{extra}, "
+    log(f"[kernel] {name}: {prim.numel()} rays/items, {hits} hits, prim equal{extra}, "
         f"max |t,u,v| err {err}")
     return err
 
@@ -216,28 +242,33 @@ def run_main_path(name, scene, cam, settings, device):
     from hikari_tpu_torch.render.pipeline import initial_state, render_frame
     from hikari_tpu_torch.trace import api
     from hikari_tpu_torch.trace import closest_hit as ch
+    from hikari_tpu_torch.trace import scatter as sc
     from hikari_tpu_torch.trace import tile_walk as tw
     from hikari_tpu_torch.utils import luminance
 
     state = initial_state(settings, device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    ch.launches = tw.launches = api.trace_calls = 0
-    frame_ms = []
+    ch.launches = tw.launches = sc.launches = api.trace_calls = 0
+    frame_ms, dropped = [], []
     with torch.no_grad():
         for _ in range(FRAMES):
+            before = sc.dropped
             t0 = time.perf_counter()
             out, state = render_frame(scene, cam, state, settings)
             torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {"closest_hit": ch.launches, "tile_walk": tw.launches}
+            dropped.append(sc.dropped - before)
+    launches = {"closest_hit": ch.launches, "tile_walk": tw.launches, "scatter_items": sc.launches}
     traces = api.trace_calls
     peak = torch.cuda.max_memory_allocated(device)
     if not (traces > 0 and sum(launches.values()) == traces):
         raise AssertionError(f"{name}: kernel launches {launches} for {traces} CUDA trace calls")
     stats = {k: float(v) for k, v in out.stats.items()}
     img = out.image
-    if tuple(img.shape) != (settings.height, settings.width, 4):
+    rh, rw = settings.render_size
+    want_hw = (2 * rh, 2 * rw) if settings.upscale.mode.value == "smaa_tu4x" else settings.output_size
+    if tuple(img.shape) != (*want_hw, 4):
         raise AssertionError(f"{name}: image shape {tuple(img.shape)}")
     if stats["nonfinite_pixels"] != 0 or not bool(torch.isfinite(img).all()):
         raise AssertionError(f"{name}: non-finite image: {stats}")
@@ -259,7 +290,8 @@ def run_main_path(name, scene, cam, settings, device):
         f"(all: {', '.join(f'{m:.1f}' for m in frame_ms)}); peak memory "
         f"{peak / 2**30:.3f} GiB; mean luminance {mean_lum:.4f}; stats {stats}")
     log(f"[main] {name} last frame: non-finite values per channel {nonfinite}; inf entries in "
-        f"the f16 reservoir state (w, w_sum, w2_sum, radiance) {f16_inf}")
+        f"the f16 reservoir state (w, w_sum, w2_sum, radiance) {f16_inf}; scatter items "
+        f"dropped per frame {dropped}")
     return state, launches
 
 
@@ -291,8 +323,8 @@ def check_small(name, scene_gpu, scene_cpu, cam, settings, device):
 def profile_frames(name, scene, cam, state, settings, frames=2, top=12):
     """``--profile``: trace ``frames`` more frames with torch.profiler;
     print the device busy share (kernel time over wall time), the device
-    time under the tile walk's ranges and the kernels with the most
-    device time."""
+    time under the tile walk's and the scatter tracer's ranges and the
+    kernels with the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -306,7 +338,7 @@ def profile_frames(name, scene, cam, state, settings, frames=2, top=12):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
-    ranges = ("tile_entries", "tile_walk")
+    ranges = ("tile_entries", "tile_walk", "scatter_plan", "scatter_items", "segment_min")
     # The ranges also appear as device-side annotations: keep them out of
     # the kernel sums, which would count their kernels twice.
     kernels = [e for e in events if e.device_type.name == "CUDA" and e.key not in ranges]
@@ -337,6 +369,7 @@ def main():
     from hikari_tpu_torch.scene import compile_scene, native, to_device
     from hikari_tpu_torch.trace import api
     from hikari_tpu_torch.trace import closest_hit as ch
+    from hikari_tpu_torch.trace import scatter as sc
     from hikari_tpu_torch.trace import tile_walk as tw
     from hikari_tpu_torch.utils.nvcc import ptxas_summary
 
@@ -349,16 +382,17 @@ def main():
     log(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
-    # ---- 2. build: both nvcc and the g++ builder at once ----
+    # ---- 2. build: the three nvcc builds and the g++ builder at once ----
     def g_build():
         native.get_builder()
         return native.build_seconds
 
-    with ThreadPoolExecutor(3) as pool:
-        futures = [pool.submit(f) for f in (ch.build, tw.build, g_build)]
-        ch_s, tw_s, gxx_s = (f.result() for f in futures)
+    with ThreadPoolExecutor(4) as pool:
+        futures = [pool.submit(f) for f in (ch.build, tw.build, sc.build, g_build)]
+        ch_s, tw_s, sc_s, gxx_s = (f.result() for f in futures)
     log(f"[build] closest_hit.cu {ch_s:.2f} s; ptxas: {ptxas_summary(ch.build_log)}")
     log(f"[build] tile_walk.cu {tw_s:.2f} s; ptxas: {ptxas_summary(tw.build_log)}")
+    log(f"[build] scatter_items.cu {sc_s:.2f} s; ptxas: {ptxas_summary(sc.build_log)}")
     log(f"[build] bvh_builder.cpp (g++) {gxx_s:.2f} s")
 
     # ---- 3a. closest-hit kernel vs twin on the cornell shapes ----
@@ -403,6 +437,13 @@ def main():
         raise AssertionError("cornell_path launched the tile walk: it has only 36 triangles")
     if profile:
         profile_frames("cornell_path", cornell, cam, cornell_state, cornell_settings)
+    cornell_bench = bench_settings(cornell_settings, CORNELL_HW[1], CORNELL_HW[0], "auto")
+    bench_state, bench_launches = run_main_path("cornell_bench", cornell, cam, cornell_bench, dev)
+    if bench_launches["tile_walk"] or bench_launches["scatter_items"]:
+        raise AssertionError(f"cornell_bench launched another search than K1: {bench_launches}")
+    if profile:
+        profile_frames("cornell_bench", cornell, cam, bench_state, cornell_bench)
+    del bench_state, cornell_state
     _, cam_s, small = cornell_config(device="cpu")
     check_small("cornell", cornell, cornell_cpu, cam_s,
                 path_settings(small, SMALL_HW[1], SMALL_HW[0]), dev)
@@ -451,19 +492,84 @@ def main():
         f"({tw_by}); phase 1 + sort {entries_ms:.4f} ms; whole trace_rays {trace_ms:.4f} ms; "
         f"twin {tw_plain_ms:.4f} ms")
 
-    # ---- 4b. city_path ----
-    del walk_c, walk_d, got_c, phase1_c  # keep the kernel cases out of the path's peak memory
+    # ---- 4b. scatter kernel vs twin on the city shapes ----
+    del walk_c, walk_d, got_c, phase1_c  # keep the kernel cases out of the later peaks
+    packed_s, cmin_s, cmax_s, cvalid_s = tw.pack_clusters(city, sc.CLUSTER)
+
+    def scatter_case(name, o, d, maxd, excl, lo, hi):
+        """Plan, fields, kernel and twin on every item; returns (plan, fields,
+        kernel output, max error)."""
+        plan = sc.scatter_plan(cmin_s, cmax_s, cvalid_s, o, d, maxd, lo, hi)
+        meta, items, n_drop = plan
+        fields = sc.item_fields(items, o, d, maxd, excl, lo, hi)
+        got = sc.scatter_items(meta, fields, packed_s)
+        want = sc.scatter_items_reference(meta, fields, packed_s)
+        err = compare(name, got, want)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name}: K3 is not bitwise equal to its twin")
+        used = int((meta[:, 1] > 0).sum())
+        log(f"[kernel] {name}: {int(meta[:, 1].sum()) + n_drop} entered pairs, CAP "
+            f"{items.shape[0]}, {used} used blocks of {meta.shape[0]}, dropped items {n_drop}")
+        return plan, fields, got, err
+
+    e_args = (co, cd, torch.full((Rc,), DISTANCE_MAX, device=dev),
+              torch.full((Rc,), -1, dtype=torch.int32, device=dev),
+              torch.zeros((Rc,), dtype=torch.int32, device=dev),
+              torch.full((Rc,), city.num_tris, dtype=torch.int32, device=dev))
+    plan_e, fields_e, got_e, err_e = scatter_case("(e) city 512x512 primary, K3", *e_args)
+    hit_e = api.trace_rays(city, co, cd, max_distance=DISTANCE_MAX, method="scatter")
+    hit_c = api.trace_rays(city, co, cd, max_distance=DISTANCE_MAX, method="pallas_tiled")
+    share = float((hit_e.prim == hit_c.prim).to(torch.float32).mean())
+    if share < K2_K3_SHARE:
+        raise AssertionError(f"(e): K3 and K2 agree on only {share:.5f} of the primary rays")
+    log(f"[kernel] (e) K3 against K2 on the primary rays: prim equal on {share:.6f} "
+        f"(>= {K2_K3_SHARE} required), {int((hit_e.prim >= 0).sum())} hits")
+    f_rays = city_random_rays(city, dev)
+    _, _, _, err_f = scatter_case("(f) city random rays, K3", *f_rays[:3], *f_rays[4:])
+    meta_e, items_e, _ = plan_e
+    torch.cuda.synchronize()
+    sc_ms = cuda_time_ms(lambda: sc.scatter_items(meta_e, fields_e, packed_s), 20)
+    plan_ms = cuda_time_ms(lambda: sc.item_fields(
+        sc.scatter_plan(cmin_s, cmax_s, cvalid_s, *e_args[:3], *e_args[4:])[1], *e_args), 3)
+    segmin_ms = cuda_time_ms(lambda: sc.segment_min(items_e, *got_e, e_args[2]), 10)
+    sc_trace_ms = cuda_time_ms(lambda: api.trace_rays(
+        city, c_origin, c_direction, max_distance=DISTANCE_MAX, method="scatter"), 3)
+    sc_plain_ms = cuda_time_ms(lambda: sc.scatter_items_reference(meta_e, fields_e, packed_s), 1,
+                               warmup=1)
+    used_e = int((meta_e[:, 1] > 0).sum())
+    cap_e = items_e.shape[0]
+    sc_pairs = used_e * sc.BLOCK_R * sc.CLUSTER
+    # Bytes: each item slot's 11 fields read and 4 results written, the
+    # 128 rows of 64 B of each used block's cluster read.
+    sc_bound, sc_by = bound_ms(sc_pairs * PAIR_FLOPS, 15 * 4 * cap_e + 64 * sc.CLUSTER * used_e)
+    log(f"[time] (e) {Rc} rays, CAP {cap_e}, {used_e} used blocks ({sc_pairs} pairs): K3 kernel "
+        f"{sc_ms:.4f} ms, bound {sc_bound:.4f} ms ({sc_by}); phases A+B with the item fields "
+        f"{plan_ms:.4f} ms; segment-min {segmin_ms:.4f} ms; whole trace_rays(method='scatter') "
+        f"{sc_trace_ms:.4f} ms; twin {sc_plain_ms:.4f} ms")
+    del plan_e, fields_e, got_e, hit_e, hit_c, meta_e, items_e, f_rays
+
+    # ---- 4c. city_path and city_bench_scatter ----
     city_state, city_launches = run_main_path("city_path", city, city_cam, city_settings, dev)
-    if city_launches["closest_hit"]:
-        raise AssertionError("city_path sent a trace to the closest-hit kernel")
+    if city_launches["closest_hit"] or city_launches["scatter_items"]:
+        raise AssertionError(f"city_path sent a trace to another search than K2: {city_launches}")
     if profile:
         profile_frames("city_path", city, city_cam, city_state, city_settings)
+    del city_state
+    city_bench = bench_settings(city_settings, CITY_HW[1], CITY_HW[0], "scatter")
+    cb_state, cb_launches = run_main_path("city_bench_scatter", city, city_cam, city_bench, dev)
+    if cb_launches["closest_hit"] or cb_launches["tile_walk"]:
+        raise AssertionError(f"city_bench_scatter sent a trace past the scatter kernel: {cb_launches}")
+    if profile:
+        profile_frames("city_bench_scatter", city, city_cam, cb_state, city_bench)
+    del cb_state
     small_arrays = compile_scene(city_scene(blocks=3, detail=True))
     if len(small_arrays.tri_world) <= city_settings.bruteforce_max_tris:
         raise AssertionError("the small city must be large enough for the tile walk")
-    check_small("small city (blocks=3)", to_device(small_arrays, dev),
-                to_device(small_arrays, "cpu"), city_cam,
+    small_gpu, small_cpu = to_device(small_arrays, dev), to_device(small_arrays, "cpu")
+    check_small("small city (blocks=3)", small_gpu, small_cpu, city_cam,
                 path_settings(city_settings, SMALL_HW[1], SMALL_HW[0]), dev)
+    check_small("small city (blocks=3), bench settings, scatter", small_gpu, small_cpu, city_cam,
+                bench_settings(city_settings, SMALL_BENCH_HW[1], SMALL_BENCH_HW[0], "scatter"), dev)
 
     if "jax" in sys.modules or "hikari_tpu" in sys.modules:
         raise AssertionError("the port imported jax or hikari_tpu")
@@ -493,6 +599,19 @@ def main():
             "plain_ms": tw_plain_ms,
             "bound_ms": tw_bound,
             "bound_by": tw_by,
+            "library_ms": None,
+        },
+        {
+            "name": "scatter_items",
+            "route": "cuda",
+            "source": "hikari_tpu_torch/csrc/scatter_items.cu",
+            "replaces": "hikari_tpu/trace/scatter.py:82",
+            "launches": cb_launches["scatter_items"],
+            "max_abs_err": max(err_e, err_f),
+            "ms": sc_ms,
+            "plain_ms": sc_plain_ms,
+            "bound_ms": sc_bound,
+            "bound_by": sc_by,
             "library_ms": None,
         },
     ]}), flush=True)

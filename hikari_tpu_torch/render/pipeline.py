@@ -2,13 +2,13 @@
 
     outputs, state' = render_frame(scene, camera, state, settings)
 
-The frame goes G-buffer -> albedo -> direct (sun) -> emissive ->
-indirect -> tone mapping -> overlay (reference render graph
-PREPASS -> LIGHT -> POST_PROCESS -> OVERLAY, src/lib.rs:332-365).
+The frame goes G-buffer -> albedo -> direct (sun) -> emissive (+ spatial
+reuse) -> indirect (+ spatial reuse) -> denoise x3 -> tone mapping ->
+SMAA TU4x -> TAA -> overlay (reference render graph PREPASS -> LIGHT ->
+POST_PROCESS -> OVERLAY, src/lib.rs:332-365).
 
-This slice covers the frame without its post chain: ``render_frame``
-raises NotImplementedError for denoise, upscaling, TAA, spatial reuse,
-HDR, bloom, FXAA and the profiling truncations, which are not ported yet.
+``render_frame`` raises NotImplementedError for HDR, bloom, FXAA, FSR1
+and the profiling truncations, which are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,14 +18,19 @@ import torch
 from hikari_tpu_torch.config import RenderSettings, Taa, UpscaleMode
 from hikari_tpu_torch.diff import clip_gradient
 from hikari_tpu_torch.render.camera import Camera
+from hikari_tpu_torch.render.denoise import deferred_planes, denoise_channel
+from hikari_tpu_torch.render.filters import nearest_sample
 from hikari_tpu_torch.render.gbuffer import render_gbuffer
 from hikari_tpu_torch.render.light import direct_lit_pass, full_screen_albedo, indirect_lit_pass
 from hikari_tpu_torch.render.noise import blue_noise_bank
 from hikari_tpu_torch.render.restir import Reservoir, compress_reservoir, decompress_reservoir
+from hikari_tpu_torch.render.smaa import smaa_tu4x
+from hikari_tpu_torch.render.spatial import spatial_reuse_pass
+from hikari_tpu_torch.render.taa import taa_jasmine
 from hikari_tpu_torch.render.tonemap import tone_mapping
 from hikari_tpu_torch.render.types import FrameState, GBuffer, RenderOutputs
 from hikari_tpu_torch.scene.buffers import SceneBuffers
-from hikari_tpu_torch.utils import luminance, map_tensors, resolve_device
+from hikari_tpu_torch.utils import luminance, map_tensors, resolve_device, uv_grid
 
 _RESERVOIRS = (
     "direct_temporal",
@@ -50,16 +55,8 @@ def check_supported(settings: RenderSettings) -> None:
     """Raise NotImplementedError for a setting this port does not cover
     yet: it never skips one in silence."""
     missing = []
-    if settings.denoise:
-        missing.append("denoise")
-    if settings.upscale.mode != UpscaleMode.NONE:
+    if settings.upscale.mode == UpscaleMode.FSR1:
         missing.append(f"upscale={settings.upscale.mode.value}")
-    if settings.taa != Taa.NONE:
-        missing.append(f"taa={settings.taa.value}")
-    if settings.indirect_spatial_reuse:
-        missing.append("indirect_spatial_reuse")
-    if settings.emissive_spatial_reuse:
-        missing.append("emissive_spatial_reuse")
     for flag in ("hdr", "bloom", "fxaa"):
         if getattr(settings, flag):
             missing.append(flag)
@@ -69,6 +66,12 @@ def check_supported(settings: RenderSettings) -> None:
         raise NotImplementedError(
             "not ported yet (see ROADMAP.md queue 1): " + ", ".join(missing)
         )
+
+
+def _albedo_at_render_res(albedo, settings: RenderSettings, frame_number: int):
+    """The full-res albedo at each render pixel's jittered deferred uv
+    (denoise.wgsl:148-150)."""
+    return deferred_planes((albedo,), settings, frame_number)[0]
 
 
 def _firewall(out, name):
@@ -99,7 +102,7 @@ def render_frame(
     gbuffer = _firewall(render_gbuffer(scene, camera, frame_number, settings), "prepass")
     albedo = _firewall(full_screen_albedo(scene, camera, gbuffer), "albedo")
 
-    direct_out, _, direct_temporal, de_spatial, bg, _ = _firewall(
+    direct_out, direct_var, direct_temporal, de_spatial, bg, _ = _firewall(
         direct_lit_pass(
             scene, camera, gbuffer, state.direct_temporal, state.de_spatial, noise_bank,
             frame_number, settings, emissive_lit=False, render_emissive=True,
@@ -109,46 +112,95 @@ def render_frame(
 
     rh, rw = settings.render_size
     if settings.emissive_lit and scene.num_emissives > 0:
-        em_out, _, em_temporal, de_spatial, _, _ = _firewall(
+        em_out, em_var, em_temporal, de_spatial, _, _ = _firewall(
             direct_lit_pass(
                 scene, camera, gbuffer, state.emissive_temporal, de_spatial, noise_bank,
                 frame_number, settings, emissive_lit=True, render_emissive=False,
             ),
             "emissive_lit",
         )
+        if settings.emissive_spatial_reuse:
+            em_out, em_var, de_spatial = _firewall(
+                spatial_reuse_pass(scene, camera, gbuffer, em_temporal, de_spatial, em_var,
+                                   frame_number, settings, emissive_lit=True),
+                "emissive_spatial",
+            )
     else:
         em_out = torch.zeros((rh, rw, 3), device=dev)
+        em_var = torch.zeros((rh, rw), device=dev)
         em_temporal = state.emissive_temporal
 
     indirect_spatial = state.indirect_spatial
     if settings.indirect_bounces > 0:
-        ind_out, _, ind_temporal, indirect_spatial, _, _ = _firewall(
+        ind_out, ind_var, ind_temporal, indirect_spatial, _, _ = _firewall(
             indirect_lit_pass(
                 scene, camera, gbuffer, state.indirect_temporal, indirect_spatial, noise_bank,
                 frame_number, settings,
             ),
             "indirect_lit",
         )
+        if settings.indirect_spatial_reuse:
+            ind_out, ind_var, indirect_spatial = _firewall(
+                spatial_reuse_pass(scene, camera, gbuffer, ind_temporal, indirect_spatial,
+                                   ind_var, frame_number, settings, emissive_lit=False),
+                "indirect_spatial",
+            )
     else:
         ind_out = torch.zeros((rh, rw, 3), device=dev)
+        ind_var = torch.zeros((rh, rw), device=dev)
         ind_temporal = state.indirect_temporal
 
-    # ---- POST PROCESS (tone mapping only in this slice) ----
+    # ---- POST PROCESS ----
+    if settings.denoise:
+        # The reference dispatches one denoise pipeline per channel
+        # (post_process.rs:1190); the JAX package vmaps the three.
+        albedo_rr = _albedo_at_render_res(albedo, settings, frame_number)
+        direct_d, em_d, ind_d = (
+            clip_gradient(
+                denoise_channel(rad, var, albedo_rr, gbuffer, frame_number, settings), 1e4,
+                "denoise",
+            )
+            for rad, var in ((direct_out, direct_var), (em_out, em_var), (ind_out, ind_var))
+        )
+    else:
+        direct_d, em_d, ind_d = direct_out, em_out, ind_out
+
     fg = (~bg).to(torch.float32)[..., None]
 
     def with_alpha(rgb):
         return torch.cat([rgb, fg], dim=-1)
 
+    # Post-chain gradient firewalls after tone mapping, SMAA and TAA, as in
+    # the JAX pipeline.
     tonemapped = tone_mapping(
-        with_alpha(direct_out), with_alpha(em_out) * fg, with_alpha(ind_out) * fg,
+        with_alpha(direct_d), with_alpha(em_d) * fg, with_alpha(ind_d) * fg,
         settings.clear_color,
     )
     tonemapped = clip_gradient(tonemapped, 1e4, "tonemap")
 
+    current = tonemapped
+    prev_upscaled = state.prev_upscaled
+    if settings.upscale.mode == UpscaleMode.SMAA_TU4X:
+        current = smaa_tu4x(current, state.prev_upscaled, gbuffer, state.prev_gbuffer,
+                            frame_number)
+        current = clip_gradient(current, 1e4, "smaa")
+        prev_upscaled = current
+
+    prev_taa = state.prev_taa
+    if settings.taa == Taa.JASMINE:
+        current = taa_jasmine(current, state.prev_taa, gbuffer, state.prev_gbuffer,
+                              settings.clear_color, settings.upscale_ratio)
+        current = clip_gradient(current, 1e4, "taa")
+        prev_taa = current
+
     # ---- OVERLAY: NaN -> albedo fallback (src/shaders/overlay.wgsl:42) ----
-    nan_mask = torch.isnan(tonemapped).any(-1, keepdim=True)
+    image = current
+    nan_mask = torch.isnan(image).any(-1, keepdim=True)
+    albedo_out = albedo
+    if image.shape[:2] != albedo.shape[:2]:
+        albedo_out = nearest_sample(albedo, uv_grid(image.shape[:2], dev))
     image = torch.where(
-        nan_mask, torch.cat([albedo, torch.ones_like(albedo[..., :1])], dim=-1), tonemapped
+        nan_mask, torch.cat([albedo_out, torch.ones_like(albedo_out[..., :1])], dim=-1), image
     )
 
     reservoirs = dict(
@@ -165,8 +217,8 @@ def render_frame(
         frame_number=frame_number + 1,
         prev_gbuffer=gbuffer,
         prev_tonemapped=tonemapped,
-        prev_taa=state.prev_taa,
-        prev_upscaled=state.prev_upscaled,
+        prev_taa=prev_taa,
+        prev_upscaled=prev_upscaled,
         **reservoirs,
     )
     stats = None
@@ -174,9 +226,9 @@ def render_frame(
         stats = {
             "background_fraction": bg.to(torch.float32).mean(),
             "nonfinite_pixels": nan_mask.to(torch.int32).sum(),
-            "mean_luminance_direct": luminance(direct_out).mean(),
-            "mean_luminance_emissive": luminance(em_out).mean(),
-            "mean_luminance_indirect": luminance(ind_out).mean(),
+            "mean_luminance_direct": luminance(direct_d).mean(),
+            "mean_luminance_emissive": luminance(em_d).mean(),
+            "mean_luminance_indirect": luminance(ind_d).mean(),
             "mean_temporal_count": reservoirs["direct_temporal"].count.mean(),
             "mean_reservoir_lifetime": reservoirs["direct_temporal"].lifetime.mean(),
         }
@@ -184,9 +236,9 @@ def render_frame(
     outputs = RenderOutputs(
         image=image,
         albedo=albedo,
-        direct=direct_out,
-        emissive=em_out,
-        indirect=ind_out,
+        direct=direct_d,
+        emissive=em_d,
+        indirect=ind_d,
         tonemapped=tonemapped,
         stats=stats,
     )

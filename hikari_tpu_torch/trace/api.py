@@ -1,14 +1,18 @@
 """Ray-tracing API: closest-hit queries over the compiled scene — the port
 of ``hikari_tpu.trace.api``.
 
-Two searches, each a hand-written CUDA kernel for CUDA tensors and its
+Three searches, each a hand-written CUDA kernel for CUDA tensors and its
 plain twin for CPU tensors:
 
 * ``trace/closest_hit.closest_hit`` tests every triangle (K1/K1b): the
   small-scene search, up to ``bruteforce_max_tris`` triangles;
 * ``trace/tile_walk.trace_tile_walk`` (K2): rays sorted into 512-ray tiles
   by direction octant and origin Morton cell, each tile walking its
-  triangle clusters near to far — above that size.
+  triangle clusters near to far — above that size;
+* ``trace/scatter.trace_scatter`` (K3), only when asked for with
+  ``method="scatter"``: every entered (ray, 128-triangle cluster) pair
+  becomes an item, each item block is tested against its one cluster, and
+  a segment-min picks each ray's winner.
 
 The searches are not differentiable (they return integer hit ids plus
 detached (t, u, v)); ``refine_hit`` / ``hit_info`` recompute (t, u, v) at
@@ -27,6 +31,8 @@ from hikari_tpu_torch.diff import clip_gradient
 from hikari_tpu_torch.scene.buffers import SceneBuffers
 from hikari_tpu_torch.trace.closest_hit import closest_hit, pack_triangles
 from hikari_tpu_torch.trace.intersect import intersects_triangle
+from hikari_tpu_torch.trace.scatter import CLUSTER as SCATTER_CLUSTER
+from hikari_tpu_torch.trace.scatter import trace_scatter
 from hikari_tpu_torch.trace.tiled import TILE_R
 from hikari_tpu_torch.trace.tile_walk import pack_clusters, trace_tile_walk
 from hikari_tpu_torch.utils import safe_normalize
@@ -40,9 +46,8 @@ trace_calls = 0
 _NOT_PORTED = {
     "tiled": "queue 1, 'Large-scene leftovers' (trace/tiled.py trace_tiled)",
     "bvh": "queue 1, 'Large-scene leftovers' (lockstep BVH walk)",
-    "scatter": "queue 2, kernel K3 (trace/scatter.py)",
 }
-_SEARCH_METHODS = ("auto", "auto_xla", "pallas", "bruteforce", "pallas_tiled")
+_SEARCH_METHODS = ("auto", "auto_xla", "pallas", "bruteforce", "pallas_tiled", "scatter")
 
 
 @dataclass(frozen=True)
@@ -84,8 +89,10 @@ def trace_rays(
     Dispatch, the JAX package's choice on its TPU: "auto"/"auto_xla" test
     every triangle (K1) up to ``bruteforce_max_tris`` triangles and walk
     tiles (K2) above; "pallas" and "bruteforce" always test every
-    triangle; "pallas_tiled" always walks tiles. Each runs its kernel on
-    CUDA and its twin on the CPU. "tiled", "bvh" and "scatter" are not
+    triangle; "pallas_tiled" always walks tiles; "scatter" always takes
+    the cluster-major scatter search, which returns the exact closest hit
+    and ignores ``early_distance``, as in the JAX package. Each runs its
+    kernel on CUDA and its twin on the CPU. "tiled" and "bvh" are not
     ported yet and raise NotImplementedError."""
     global trace_calls
     if method in _NOT_PORTED:
@@ -117,6 +124,9 @@ def trace_rays(
     if method == "pallas_tiled":
         early = per_ray(early_distance, 0.0, torch.float32)
         t, prim, u, v = _trace_tile_walk(scene, o, d, maxd, early, excl, lo, hi)
+    elif method == "scatter":
+        t, prim, u, v = trace_scatter(*pack_clusters(scene, SCATTER_CLUSTER), o, d, maxd, excl,
+                                      lo, hi)
     else:
         t, prim, u, v = closest_hit(o, d, maxd, excl, lo, hi, pack_triangles(scene))
     inst = torch.where(prim >= 0, scene.tri_inst[prim.clamp(min=0)], -1).to(torch.int32)

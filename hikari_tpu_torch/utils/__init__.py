@@ -159,6 +159,16 @@ def halton23_sequence(count: int) -> np.ndarray:
 # 16 Halton(2,3) jitter points (reference src/view.rs:130-139).
 HALTON_JITTER = halton23_sequence(16)
 
+# The reference's 3x3 à-trous kernel (src/view.rs:125-129).
+ATROUS_KERNEL = np.array(
+    [
+        [0.0625, 0.125, 0.0625],
+        [0.125, 0.25, 0.125],
+        [0.0625, 0.125, 0.0625],
+    ],
+    dtype=np.float32,
+)
+
 
 def gather_channels(table, idx):
     """Rows of ``table`` (N,) or (N, C) at ``idx`` (...,)."""

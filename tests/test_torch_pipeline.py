@@ -249,11 +249,22 @@ def test_render_frame_matches(world, jax_states, frame):
          "emissive_spatial_reuse", "hdr", "bloom", "fxaa", "stop_after"],
 )
 def test_render_frame_rejects_unported(world, override):
-    """A setting this slice leaves out fails loudly instead of being
-    skipped in silence."""
+    """A setting the port leaves out fails loudly instead of being skipped
+    in silence. The post chain is ported now (denoise, SMAA TU4x, TAA
+    Jasmine, both spatial reuses): those settings render a finite frame of
+    the output size their chain gives."""
     from hikari_tpu_torch.render.pipeline import initial_state
 
     settings = world["ts"].replace(**override)
+    ported = ("denoise", "indirect_spatial_reuse", "emissive_spatial_reuse", "taa")
+    smaa = settings.upscale.mode == tc.UpscaleMode.SMAA_TU4X
+    if smaa or any(k in override for k in ported):
+        with torch.no_grad():
+            out, _ = t_render(world["tb"], world["tcam"], initial_state(settings, "cpu"), settings)
+        rh, rw = settings.render_size
+        assert out.image.shape == ((2 * rh, 2 * rw, 4) if smaa else (H, W, 4))
+        assert bool(torch.isfinite(out.image).all())
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         t_render(world["tb"], world["tcam"], initial_state(world["ts"], "cpu"), settings)
 
