@@ -5,10 +5,10 @@
 
 Phases, each reported on its own line:
   1. [device] require CUDA; print the card and its power limit.
-  2. [build] compile the three kernels from csrc/ with nvcc
-     (closest_hit.cu, tile_walk.cu, scatter_items.cu) and the C++ BVH
-     builder with g++, all at once; print each build time and ptxas'
-     registers, shared memory and spills.
+  2. [build] compile the five kernels from csrc/ with nvcc
+     (closest_hit.cu, tile_walk.cu, scatter_items.cu, window_pack.cu,
+     take_along.cu) and the C++ BVH builder with g++, all at once; print
+     each build time and ptxas' registers, shared memory and spills.
   3. cornell. [kernel]/[time]: the closest-hit kernel against its plain
      twin on the card, (a) on the 1080p cornell primary rays, (b) on a
      random 5120-triangle soup with exclusion and prim ranges; prim equal,
@@ -37,6 +37,22 @@ Phases, each reported on its own line:
      every trace through the scatter kernel). [check]: a small city
      (blocks=3, 18,422 triangles), card against CPU, at 48x63 without the
      post chain and at 48x60 with the bench settings and the scatter tracer.
+  5. primitives. [kernel]: (g) the window-table pack (T1) at the TPU
+     tool's shape (8 planes of 1080x1920, 16 taps) equal to its twin;
+     (h) the single gather (T2) at (512, 512), both axes, each index mode;
+     (i) the repeated gathers (T3) at the tool's four shapes, equal to the
+     twin and to the tool's closed-form sum. [time]: each against its twin,
+     its bound and a PyTorch yardstick. [prims]: the port's
+     ``tools/bench_pallas_prims`` on the card, every case checked.
+  6. entry points. [render]: ``examples/render`` for cornell (24 frames at
+     128, 16 at 256), minimal, simple and scene (256) and
+     ``examples/dissect`` for cornell (256), into a temporary directory:
+     ms/frame, peak memory, non-finite pixels (must be 0), mean luminance
+     (must be > 0), trace calls = closest-hit launches.
+Every kernel case has a tie case: one triangle duplicated at prims 1, 4 and
+8 (for the tile walk, 1 and 4 of one cluster and the next cluster's row
+8), where the JAX kernels' per-sublane rule keeps the sublane-0 prim and
+the brute-force rule the lowest.
 ``--profile`` adds a torch.profiler breakdown of two more frames of each
 main path. The second-to-last lines are the kernel table as JSON and the
 card's nvidia-smi name/power limit; the last line is the result JSON. Any
@@ -66,6 +82,12 @@ K2_K3_SHARE = 0.999
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 PAIR_FLOPS = 30
+# The primitives' shapes: the TPU tool's (tools/bench_pallas_prims.py).
+PACK_PLANES, PACK_HW, PACK_DXS = 8, (1080, 1920), list(range(16))
+GATHER_CASES = (((512, 128), 1, 32), ((512, 128), 1, 128), ((512, 128), 1, 1), ((8, 1024), 0, 32))
+RENDER_CASES = (("cornell", 128, 24), ("cornell", 256, 16), ("minimal", 256, 16),
+                ("simple", 256, 16), ("scene", 256, 16))
+DISSECT_CASE = ("cornell", 256, 16)
 
 
 def log(msg):
@@ -110,6 +132,25 @@ def cuda_time_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters, warmup=2):
+    """Device time per call of ``fn``: the CUDA kernels' time in a
+    torch.profiler trace of ``iters`` calls, over ``iters``. For calls so
+    short that the host's launch loop, not the card, sets the pace of
+    ``cuda_time_ms``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type.name == "CUDA")
+    return busy_us / iters / 1e3
 
 
 def bound_ms(flops, nbytes):
@@ -249,7 +290,7 @@ def run_main_path(name, scene, cam, settings, device):
     state = initial_state(settings, device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    ch.launches = tw.launches = sc.launches = api.trace_calls = 0
+    ch.launches = ch.streamed_launches = tw.launches = sc.launches = api.trace_calls = 0
     frame_ms, dropped = [], []
     with torch.no_grad():
         for _ in range(FRAMES):
@@ -261,6 +302,9 @@ def run_main_path(name, scene, cam, settings, device):
             dropped.append(sc.dropped - before)
     launches = {"closest_hit": ch.launches, "tile_walk": tw.launches, "scatter_items": sc.launches}
     traces = api.trace_calls
+    # Closest-hit launches over tables above one TPU tile (K1b's regime),
+    # part of the closest-hit count.
+    launches_k1b = ch.streamed_launches
     peak = torch.cuda.max_memory_allocated(device)
     if not (traces > 0 and sum(launches.values()) == traces):
         raise AssertionError(f"{name}: kernel launches {launches} for {traces} CUDA trace calls")
@@ -291,8 +335,9 @@ def run_main_path(name, scene, cam, settings, device):
         f"{peak / 2**30:.3f} GiB; mean luminance {mean_lum:.4f}; stats {stats}")
     log(f"[main] {name} last frame: non-finite values per channel {nonfinite}; inf entries in "
         f"the f16 reservoir state (w, w_sum, w2_sum, radiance) {f16_inf}; scatter items "
-        f"dropped per frame {dropped}")
-    return state, launches
+        f"dropped per frame {dropped}; closest-hit launches over tables above 2,048 "
+        f"triangles {launches_k1b}")
+    return state, dict(launches, closest_hit_k1b=launches_k1b)
 
 
 def check_small(name, scene_gpu, scene_cpu, cam, settings, device):
@@ -354,6 +399,273 @@ def profile_frames(name, scene, cam, state, settings, frames=2, top=12):
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}")
 
 
+def duplicate_rows(rows, dup, device):
+    """(rows, 16) packed rows of one triangle in the z = 0 plane, valid only
+    at the prims ``dup`` (instance 0): an exact tie among those prims."""
+    import torch
+
+    from hikari_tpu_torch.trace.intersect import precompute_triangles
+
+    tri = torch.tensor([[[-1.0, -1.0, 0.0], [1.0, -1.0, 0.0], [0.0, 1.0, 0.0]]])
+    pre = precompute_triangles(tri.repeat(rows, 1, 1))
+    valid = torch.zeros(rows)
+    valid[list(dup)] = 1.0
+    packed = torch.cat([pre["n"], pre["eu"], pre["ev"], pre["cn"][:, None], pre["cu"][:, None],
+                        pre["cv"][:, None], valid[:, None], torch.zeros((rows, 3))], dim=1)
+    return packed.contiguous().to(device)
+
+
+def tie_rays(R, hi, device):
+    """R rays through the duplicated triangle, half from each side, with
+    the whole contract's other arguments at their defaults."""
+    import torch
+
+    g = torch.Generator().manual_seed(3)
+    xy = torch.rand((R, 2), generator=g) * 0.6 - 0.3
+    front = torch.arange(R) % 2 == 0
+    o = torch.cat([xy, torch.where(front, -5.0, 4.0)[:, None]], dim=1)
+    d = torch.zeros((R, 3))
+    d[:, 2] = torch.where(front, 1.0, -1.0)
+    return [x.to(device).contiguous() for x in (
+        o, d, torch.full((R,), 3.0e38), torch.zeros(R), torch.full((R,), -1, dtype=torch.int32),
+        torch.zeros(R, dtype=torch.int32), torch.full((R,), hi, dtype=torch.int32))]
+
+
+def tie_cases(device):
+    """The JAX kernels' tie rule on the card. K1: a triangle duplicated at
+    prims 1, 4 and 8 returns prim 8 under "pallas" (sublane 0 wins the
+    halving) and prim 1 under "bruteforce". K2: duplicates at prims 1 and 4
+    of cluster 0 and 72 (row 8) of cluster 1 return prim 72: the eight
+    sublane bests carry across the clusters. Each kernel equals its twin."""
+    import torch
+
+    from hikari_tpu_torch.trace import closest_hit as ch
+    from hikari_tpu_torch.trace import tile_walk as tw
+
+    o, d, maxd, early, excl, lo, hi = tie_rays(1024, 16, device)
+    packed = duplicate_rows(16, (1, 4, 8), device)
+    for tie, want in (("pallas", 8), ("bruteforce", 1)):
+        got = ch.closest_hit(o, d, maxd, excl, lo, hi, packed, tie)
+        ref = ch.closest_hit_reference(o, d, maxd, excl, lo, hi, packed, tie)
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"tie case K1 {tie}: kernel differs from its twin")
+        if not bool((got[1] == want).all()):
+            raise AssertionError(f"tie case K1 {tie}: prims {got[1].unique().tolist()}, want {want}")
+        log(f"[kernel] tie K1 tie={tie!r}: duplicates at prims 1, 4, 8 -> prim {want} on all "
+            f"{o.shape[0]} rays, kernel = twin")
+    cluster = 64
+    o, d, maxd, early, excl, lo, hi = tie_rays(512, 2 * cluster, device)
+    packed = duplicate_rows(2 * cluster, (1, 4, cluster + 8), device)
+    bmin = torch.tensor([[-1.0, -1.0, 0.0]] * 2, device=device)
+    bmax = torch.tensor([[1.0, 1.0, 0.0]] * 2, device=device)
+    cvalid = torch.ones(2, dtype=torch.bool, device=device)
+    order, entry, maxent = tw.tile_entries(bmin, bmax, cvalid, o, d, maxd, lo, hi, cluster)
+    walk = (packed, bmin, bmax, o, d, maxd, early, excl, lo, hi, order, entry, maxent, cluster,
+            False)
+    got, ref = tw.tile_walk(*walk), tw.tile_walk_reference(*walk)
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        raise AssertionError("tie case K2: kernel differs from its twin")
+    if not bool((got[1] == cluster + 8).all()) or got[4].tolist() != [2]:
+        raise AssertionError(f"tie case K2: prims {got[1].unique().tolist()}, tested {got[4].tolist()}")
+    log(f"[kernel] tie K2: duplicates at prims 1, 4 (cluster 0) and {cluster + 8} (cluster 1) -> "
+        f"prim {cluster + 8} on all 512 rays, 2 clusters tested, kernel = twin")
+
+
+def prim_cases(device):
+    """(g)-(i) and their [time] lines: T1-T3 against their twins on the
+    card. Returns {kernel: (max_abs_err, ms, plain_ms, bound, bound_by,
+    library_ms)} and the pack's composition time."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from hikari_tpu_torch.tools import prims
+
+    out = {}
+    # (g) T1 at the TPU tool's shape.
+    H, W = PACK_HW
+    N = H * W
+    ramp = torch.arange(N, dtype=torch.float32, device=device)
+    planes = torch.stack([torch.sin(ramp * 1e-5 * (1 + c)).reshape(H, W) for c in range(PACK_PLANES)])
+    del ramp
+    got = prims.window_pack(planes, PACK_DXS)
+    want = prims.window_pack_reference(planes, PACK_DXS)
+    if not torch.equal(got, want):
+        raise AssertionError("(g) window_pack differs from its twin")
+    err_g = float((got - want).abs().max())
+    del want
+    taps = len(PACK_DXS)
+
+    def composition():
+        padded = F.pad(planes, (0, taps - 1), mode="replicate")
+        return padded.unfold(2, taps, 1).permute(1, 2, 0, 3).contiguous().view(N, -1)
+
+    if not torch.equal(composition(), got):
+        raise AssertionError("(g) the pad + unfold composition differs from the table")
+    log(f"[kernel] (g) window_pack {PACK_PLANES} planes {H}x{W}, {taps} taps -> {tuple(got.shape)}: "
+        f"kernel = twin (torch.equal), max |err| {err_g}")
+    del got
+    torch.cuda.synchronize()
+    pack_ms = cuda_time_ms(lambda: prims.window_pack(planes, PACK_DXS), 20)
+    pack_plain_ms = cuda_time_ms(lambda: prims.window_pack_reference(planes, PACK_DXS), 3)
+    comp_ms = cuda_time_ms(composition, 5)
+    pack_bytes = planes.numel() * 4 + N * PACK_PLANES * taps * 4
+    pack_bound, pack_by = bound_ms(0, pack_bytes)
+    log(f"[time] (g) window_pack: kernel {pack_ms:.4f} ms, twin {pack_plain_ms:.4f} ms, bound "
+        f"{pack_bound:.4f} ms ({pack_by}: {pack_bytes / 1e6:.1f} MB); nearest PyTorch composition "
+        f"(replicate pad + unfold + contiguous, 3 calls) {comp_ms:.4f} ms")
+    out["window_pack"] = (err_g, pack_ms, pack_plain_ms, pack_bound, pack_by, None)
+    del planes
+    torch.cuda.empty_cache()
+
+    def grid(m, n):
+        return (torch.arange(m * n, dtype=torch.float32, device=device) * 1e-4).reshape(m, n)
+
+    g = torch.Generator().manual_seed(5)
+
+    def draw(shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=g, dtype=torch.int32).to(device)
+
+    def compare_take(name, x, idx, axis, reps, mode=None):
+        got = prims.take_along_sum(x, idx, axis, reps, mode)
+        want = prims.take_along_sum_reference(x, idx, axis, reps, mode)
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True, msg=name)
+        fin = torch.isfinite(want)
+        err = float((got[fin] - want[fin]).abs().max())
+        return got, err, int((~fin).sum())
+
+    # (h) T2 at (512, 512): both axes, in-range indices, then each mode on
+    # indices in [-2n, 2n).
+    x = grid(512, 512)
+    errs = []
+    for axis in (0, 1):
+        _, err, _ = compare_take(f"(h) axis {axis}", x, draw((512, 512), 0, 512), axis, 1)
+        errs.append(err)
+        for mode in (None, "clip", "fill"):
+            _, err, nan = compare_take(f"(h) axis {axis} mode {mode}", x, draw((512, 512), -1024, 1024),
+                                       axis, 1, mode)
+            errs.append(err)
+            if (nan > 0) != (mode != "clip"):
+                raise AssertionError(f"(h) axis {axis} mode {mode}: {nan} fill values")
+    log(f"[kernel] (h) take_along (512, 512), axes 0 and 1, in range and modes None/clip/fill on "
+        f"indices in [-1024, 1024): kernel = twin (NaN where the twin fills), max |err| {max(errs)}")
+    idx0 = draw((512, 512), 0, 512)
+    idx0_64 = idx0.long()
+    calls = {"kernel": lambda: prims.take_along_sum(x, idx0, 0),
+             "twin": lambda: prims.take_along_sum_reference(x, idx0, 0),
+             "torch.gather": lambda: torch.gather(x, 0, idx0_64)}
+    dev_us = {k: device_ms(f, 200) * 1e3 for k, f in calls.items()}
+    call_us = {k: cuda_time_ms(f, 200) * 1e3 for k, f in calls.items()}
+    t2_bound, t2_by = bound_ms(2 * x.numel(), 3 * 4 * x.numel())
+    log(f"[time] (h) take_along (512, 512) axis 0, device time per call (torch.profiler): "
+        + ", ".join(f"{k} {v:.2f} us" for k, v in dev_us.items())
+        + f"; per call in a host launch loop (CUDA events): "
+        + ", ".join(f"{k} {v:.2f} us" for k, v in call_us.items())
+        + f"; bound {t2_bound * 1e3:.3f} us ({t2_by})")
+    out["take_along_T2"] = (max(errs), dev_us["kernel"] / 1e3, dev_us["twin"] / 1e3, t2_bound, t2_by,
+                            dev_us["torch.gather"] / 1e3)
+
+    # (i) T3 at the tool's four shapes: twin and the tool's closed form.
+    errs, t3 = [], None
+    for (m, n), axis, reps in GATHER_CASES:
+        x, idx = grid(m, n), draw((m, n), 0, (m, n)[axis])
+        got, err, _ = compare_take(f"(i) {m}x{n} axis {axis} x{reps}", x, idx, axis, reps)
+        errs.append(err)
+        base = float(torch.take_along_dim(x, idx.long(), dim=axis).double().sum())
+        want = sum(base + r * idx.numel() for r in range(reps))
+        value = float(got.double().sum())
+        if abs(value - want) > abs(want) * 1e-4 + 1e-3:
+            raise AssertionError(f"(i) {m}x{n} x{reps}: sum {value} != closed form {want}")
+        ms = device_ms(lambda: prims.take_along_sum(x, idx, axis, reps), 200)
+        call = cuda_time_ms(lambda: prims.take_along_sum(x, idx, axis, reps), 200)
+        plain = device_ms(lambda: prims.take_along_sum_reference(x, idx, axis, reps), 5)
+        bound, by = bound_ms(2 * reps * idx.numel(), 3 * 4 * idx.numel())
+        log(f"[kernel] (i) take_along {m}x{n} axis {axis} x{reps}: kernel = twin, sum {value:.6g} vs "
+            f"closed form {want:.6g}; [time] device time per call: kernel {ms * 1e3:.2f} us, twin "
+            f"{plain * 1e3:.2f} us; kernel per call in a host loop {call * 1e3:.2f} us; bound "
+            f"{bound * 1e3:.3f} us ({by})")
+        if t3 is None:
+            t3 = (ms, plain, bound, by)
+    out["take_along_T3"] = (max(errs), *t3, None)
+    return out
+
+
+def run_prims(device):
+    """[prims]: the port's bench_pallas_prims on the card with the
+    primitives' counts set to 0 just before; every case must meet its
+    check. Returns (T1, T2, T3) launches."""
+    from hikari_tpu_torch.tools import bench_pallas_prims, prims
+
+    prims.window_pack_launches = prims.take_along_launches = 0
+    t0 = time.perf_counter()
+    results = bench_pallas_prims.main([])
+    seconds = time.perf_counter() - t0
+    bad = [name for name, r in results.items() if not r["ok"]]
+    if bad:
+        raise AssertionError(f"[prims] cases failed their checks: {bad}")
+    t1, taken = prims.window_pack_launches, prims.take_along_launches
+    t2 = sum(r["take_along"] for name, r in results.items() if "(512x512)" in name)
+    if not (t1 > 0 and t2 > 0 and taken - t2 > 0):
+        raise AssertionError(f"[prims] launches: window_pack {t1}, take_along {taken} (T2 {t2})")
+    log(f"[prims] {len(results)} cases in {seconds:.1f} s, every check met; launches: window_pack "
+        f"{t1}, take_along {taken} (T2 cases {t2}, T3 cases {taken - t2})")
+    return t1, t2, taken - t2
+
+
+def run_render(device):
+    """[render]: the port's examples/render and examples/dissect on the
+    card into a temporary directory, each with the trace counts set to 0
+    just before; every trace must go through the closest-hit kernel and
+    the image must be finite and lit. Returns the closest-hit launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hikari_tpu_torch.examples import dissect, render
+    from hikari_tpu_torch.trace import api
+    from hikari_tpu_torch.trace import closest_hit as ch
+    from hikari_tpu_torch.trace import scatter as sc
+    from hikari_tpu_torch.trace import tile_walk as tw
+    from hikari_tpu_torch.utils import luminance
+
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        cases = [(f"render {name}", size, frames, render.main,
+                  [name, "--frames", str(frames), "--size", str(size), "--out",
+                   f"{tmp}/{name}_{size}.png"]) for name, size, frames in RENDER_CASES]
+        name, size, frames = DISSECT_CASE
+        cases.append((f"dissect {name}", size, frames, dissect.main,
+                      [name, "--frames", str(frames), "--size", str(size), "--out-dir",
+                       f"{tmp}/dissect"]))
+        for label, size, frames, entry, argv in cases:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            ch.launches = tw.launches = sc.launches = api.trace_calls = 0
+            res = entry(argv)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(device)
+            traces, k1 = api.trace_calls, ch.launches
+            if not (traces > 0 and k1 == traces and tw.launches == sc.launches == 0):
+                raise AssertionError(f"{label}: {traces} trace calls, closest-hit {k1}, tile walk "
+                                     f"{tw.launches}, scatter {sc.launches}")
+            img = res["outputs"].image
+            nonfinite = int((~torch.isfinite(img)).sum())
+            mean_lum = float(luminance(img[..., :3]).mean())
+            if nonfinite or not mean_lum > 0.0:
+                raise AssertionError(f"{label}: {nonfinite} non-finite pixels, mean luminance {mean_lum}")
+            if "images" in res:
+                bad = [k for k, (_, im) in res["images"].items() if not np.isfinite(im).all()]
+                if bad:
+                    raise AssertionError(f"{label}: non-finite pass images {bad}")
+            ms = float(np.median(res["frame_seconds"][1:])) * 1e3
+            log(f"[render] {label} {size}x{size}, {frames} frames: ms/frame median(frames 2-{frames}) "
+                f"{ms:.2f}, peak memory {peak / 2**30:.3f} GiB, non-finite pixels {nonfinite}, mean "
+                f"luminance {mean_lum:.4f}, trace calls {traces} = closest-hit launches {k1}")
+            launches += k1
+    return launches
+
+
 def main():
     import torch
 
@@ -371,6 +683,7 @@ def main():
     from hikari_tpu_torch.trace import closest_hit as ch
     from hikari_tpu_torch.trace import scatter as sc
     from hikari_tpu_torch.trace import tile_walk as tw
+    from hikari_tpu_torch.tools import prims
     from hikari_tpu_torch.utils.nvcc import ptxas_summary
 
     profile = "--profile" in sys.argv[1:]
@@ -382,17 +695,22 @@ def main():
     log(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
-    # ---- 2. build: the three nvcc builds and the g++ builder at once ----
+    # ---- 2. build: the five nvcc builds and the g++ builder at once ----
     def g_build():
         native.get_builder()
         return native.build_seconds
 
-    with ThreadPoolExecutor(4) as pool:
-        futures = [pool.submit(f) for f in (ch.build, tw.build, sc.build, g_build)]
-        ch_s, tw_s, sc_s, gxx_s = (f.result() for f in futures)
+    builds = (ch.build, tw.build, sc.build, lambda: prims.build("window_pack"),
+              lambda: prims.build("take_along"), g_build)
+    with ThreadPoolExecutor(len(builds)) as pool:
+        futures = [pool.submit(f) for f in builds]
+        ch_s, tw_s, sc_s, wp_s, ta_s, gxx_s = (f.result() for f in futures)
     log(f"[build] closest_hit.cu {ch_s:.2f} s; ptxas: {ptxas_summary(ch.build_log)}")
     log(f"[build] tile_walk.cu {tw_s:.2f} s; ptxas: {ptxas_summary(tw.build_log)}")
     log(f"[build] scatter_items.cu {sc_s:.2f} s; ptxas: {ptxas_summary(sc.build_log)}")
+    log(f"[build] window_pack.cu {wp_s:.2f} s; ptxas: "
+        f"{ptxas_summary(prims.build_logs['window_pack'])}")
+    log(f"[build] take_along.cu {ta_s:.2f} s; ptxas: {ptxas_summary(prims.build_logs['take_along'])}")
     log(f"[build] bvh_builder.cpp (g++) {gxx_s:.2f} s")
 
     # ---- 3a. closest-hit kernel vs twin on the cornell shapes ----
@@ -416,8 +734,13 @@ def main():
                     ch.closest_hit_reference(*prim_args))
     soup = soup_case(dev)
     err_b = compare("(b) 5120-tri soup", ch.closest_hit(*soup), ch.closest_hit_reference(*soup))
+    err_bf = compare("(a) cornell 1080p primary, tie='bruteforce'",
+                     ch.closest_hit(*prim_args, "bruteforce"),
+                     ch.closest_hit_reference(*prim_args, "bruteforce"))
+    tie_cases(dev)
     torch.cuda.synchronize()
     ch_ms = cuda_time_ms(lambda: ch.closest_hit(*prim_args), 50)
+    ch_bf_ms = cuda_time_ms(lambda: ch.closest_hit(*prim_args, "bruteforce"), 50)
     ch_plain_ms = cuda_time_ms(lambda: ch.closest_hit_reference(*prim_args), 5)
     soup_ms = cuda_time_ms(lambda: ch.closest_hit(*soup), 20)
     soup_plain_ms = cuda_time_ms(lambda: ch.closest_hit_reference(*soup), 3)
@@ -427,9 +750,10 @@ def main():
     ch_bound, ch_by = bound_ms(R * P * PAIR_FLOPS, R * 56 + P * 64)
     Rs, Ps = soup[0].shape[0], soup[6].shape[0]
     soup_bound, soup_by = bound_ms(Rs * Ps * PAIR_FLOPS, Rs * 56 + Ps * 64)
-    log(f"[time] (a) {R} rays x {P} tris: kernel {ch_ms:.4f} ms, twin {ch_plain_ms:.4f} ms, "
-        f"bound {ch_bound:.4f} ms ({ch_by}); (b) {Rs} rays x {Ps} tris: kernel {soup_ms:.4f} ms, "
-        f"twin {soup_plain_ms:.4f} ms, bound {soup_bound:.4f} ms ({soup_by})")
+    log(f"[time] (a) {R} rays x {P} tris: kernel {ch_ms:.4f} ms (tie='bruteforce' "
+        f"{ch_bf_ms:.4f} ms), twin {ch_plain_ms:.4f} ms, bound {ch_bound:.4f} ms ({ch_by}); "
+        f"(b) {Rs} rays x {Ps} tris: kernel {soup_ms:.4f} ms, twin {soup_plain_ms:.4f} ms, "
+        f"bound {soup_bound:.4f} ms ({soup_by})")
 
     # ---- 3b. cornell_path ----
     cornell_state, cornell_launches = run_main_path("cornell_path", cornell, cam, cornell_settings, dev)
@@ -571,8 +895,27 @@ def main():
     check_small("small city (blocks=3), bench settings, scatter", small_gpu, small_cpu, city_cam,
                 bench_settings(city_settings, SMALL_BENCH_HW[1], SMALL_BENCH_HW[0], "scatter"), dev)
 
+    # The closest-hit launches of the main paths with a table larger than
+    # one TPU tile (K1b's regime): none of the paths has one.
+    k1b_launches = sum(x["closest_hit_k1b"] for x in (cornell_launches, bench_launches,
+                                                        city_launches, cb_launches))
+
+    # ---- 5. the primitives: kernels vs twins, then the tool ----
+    prim_res = prim_cases(dev)
+    t1_launches, t2_launches, t3_launches = run_prims(dev)
+
+    # ---- 6. the entry points ----
+    render_launches = run_render(dev)
+    log(f"[render] closest-hit launches over the entry points: {render_launches}")
+
     if "jax" in sys.modules or "hikari_tpu" in sys.modules:
         raise AssertionError("the port imported jax or hikari_tpu")
+
+    def prim_entry(name, source, replaces, launches, key):
+        err, ms, plain, bound, by, lib = prim_res[key]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bound, "bound_by": by, "library_ms": lib}
 
     print(json.dumps({"kernels": [
         {
@@ -581,11 +924,24 @@ def main():
             "source": "hikari_tpu_torch/csrc/closest_hit.cu",
             "replaces": "hikari_tpu/trace/pallas_kernel.py:142",
             "launches": cornell_launches["closest_hit"],
-            "max_abs_err": max(err_a, err_b),
+            "max_abs_err": max(err_a, err_bf),
             "ms": ch_ms,
             "plain_ms": ch_plain_ms,
             "bound_ms": ch_bound,
             "bound_by": ch_by,
+            "library_ms": None,
+        },
+        {
+            "name": "closest_hit (K1b regime: tables above 2,048 triangles)",
+            "route": "cuda",
+            "source": "hikari_tpu_torch/csrc/closest_hit.cu",
+            "replaces": "hikari_tpu/trace/pallas_kernel.py:168",
+            "launches": k1b_launches,
+            "max_abs_err": err_b,
+            "ms": soup_ms,
+            "plain_ms": soup_plain_ms,
+            "bound_ms": soup_bound,
+            "bound_by": soup_by,
             "library_ms": None,
         },
         {
@@ -614,6 +970,12 @@ def main():
             "bound_by": sc_by,
             "library_ms": None,
         },
+        prim_entry("window_pack", "hikari_tpu_torch/csrc/window_pack.cu",
+                   "tools/bench_pallas_prims.py:153", t1_launches, "window_pack"),
+        prim_entry("take_along (T2, single gather)", "hikari_tpu_torch/csrc/take_along.cu",
+                   "tools/bench_pallas_prims.py:193", t2_launches, "take_along_T2"),
+        prim_entry("take_along (T3, repeated gather)", "hikari_tpu_torch/csrc/take_along.cu",
+                   "tools/bench_pallas_prims.py:227", t3_launches, "take_along_T3"),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

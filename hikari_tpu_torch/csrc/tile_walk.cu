@@ -24,24 +24,27 @@
 // Walk of one tile (pallas_tiled.py:224-302). It starts unless entry[0] is
 // F32_MAX. At step j, for cluster c = order[j]:
 //   1. with the skip on, re-test c's AABB against every ray's CURRENT best
-//      (slab test with the signed-epsilon inverse direction); the block
-//      votes with __syncthreads_or and tests c only if some ray enters;
+//      (the least of its eight sublane bests; slab test with the
+//      signed-epsilon inverse direction); the block votes with
+//      __syncthreads_or and tests c only if some ray enters;
 //   2. dense-test the cluster's triangles against every ray of the tile:
 //      K1's pair test with t < best, t < maxd, inst != excl and
 //      lo <= prim < hi;
 //   3. retire the tile when j+1 == L, or entry[j+1] is F32_MAX, or no ray
-//      is still open: a ray is open when it is not done early
-//      (prim >= 0 and best < early), best > entry[j+1] and
-//      maxent >= entry[j+1]. The block votes with __syncthreads_or.
+//      is still open: a ray is open when it is not done early (some
+//      sublane holds a hit nearer than early), its least best >
+//      entry[j+1] and maxent >= entry[j+1]. The block votes with
+//      __syncthreads_or.
 // Outputs per ray t, prim, u, v (a miss: t = min(maxd, F32_MAX), prim -1,
 // u = v = 0) and per tile the number of clusters tested.
 //
-// Tie rule: within a cluster the triangles are visited in ascending prim id
-// with a strict `t < best`, so the LOWEST prim wins among equal t; across
-// clusters the best is replaced only on a strict `<`, so the cluster
-// visited FIRST wins. K2 on the TPU keeps one best per (prim mod 8)
-// sublane and halves towards the lower sublane; the port does not copy
-// that layout artefact.
+// Tie rule, the JAX kernel's (pallas_tiled.py:161-216, :309-326): each
+// thread keeps eight running bests over the whole walk, one per (row mod 8)
+// sublane of a cluster (clusters are multiples of 8 rows, so the sublane is
+// also prim mod 8), each replaced only on a strict `t < best`. At the end
+// the eight are halved 8 -> 4 -> 2 -> 1, taking the upper half only when
+// it is strictly nearer: among equal t the sublanes win in the order
+// 0, 4, 2, 6, 1, 5, 3, 7, whichever clusters the triangles lie in.
 //
 // Bit-for-bit agreement with the twin: every dot product is summed in the
 // twin's order ((x*x' + y*y') + z*z') with round-to-nearest intrinsics and
@@ -50,7 +53,9 @@
 // prim and the per-tile counts then equal the twin's.
 //
 // What bounds it: about 30 flops per tested ray/triangle pair (tested
-// clusters x 512 x cluster pairs) at 67 TFLOP/s FP32, and the tested
+// clusters x 512 x cluster pairs) at 67 TFLOP/s FP32 (the eight bests cost
+// 16 registers and a few compares per cluster; the winner's u, v are
+// recomputed once at the end), and the tested
 // clusters' rows, cluster x 64 B each, from L2 or HBM (the city's table is
 // 35 MB and fits in the 50 MB L2). The pair test dominates: it is
 // compute-bound. This first version copies a cluster with a barrier and
@@ -63,6 +68,7 @@ namespace {
 
 constexpr int kTileRays = 512;
 constexpr int kRowFloat4 = 4;  // one packed row = 16 floats = 4 float4
+constexpr int kSublanes = 8;   // K2's per-sublane bests (the tie rule)
 constexpr float kEps = 1.1920929e-7f;
 constexpr float kF32Max = 3.402823466e38f;
 
@@ -77,6 +83,14 @@ __device__ __forceinline__ float nan_min(float a, float b) {
 }
 __device__ __forceinline__ float nan_max(float a, float b) {
   return a != a ? a : (b != b ? b : fmaxf(a, b));
+}
+
+// The least of the eight bests, NaN if any is NaN (jnp.min, torch.amin).
+__device__ __forceinline__ float least(const float (&t)[kSublanes]) {
+  float m = t[0];
+#pragma unroll
+  for (int s = 1; s < kSublanes; ++s) m = nan_min(m, t[s]);
+  return m;
 }
 
 // trace/tiled.py safe_inv_dir: 1/d with a signed epsilon floor.
@@ -110,9 +124,17 @@ __global__ void __launch_bounds__(kTileRays)
   const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
 
   // torch.clamp(maxd, max=F32_MAX) semantics: NaN stays NaN.
-  float best_t = isnan(md) ? md : fminf(md, kF32Max);
-  int best_prim = -1;
-  float best_u = 0.f, best_v = 0.f;
+  const float init_t = isnan(md) ? md : fminf(md, kF32Max);
+  // u and v are not kept per sublane: they are recomputed for the winner
+  // at the end (the same operations on the same values give the same bits),
+  // which saves 16 registers.
+  float best_t[kSublanes];
+  int best_p[kSublanes];
+#pragma unroll
+  for (int s = 0; s < kSublanes; ++s) {
+    best_t[s] = init_t;
+    best_p[s] = -1;
+  }
 
   const int L = num_clusters;
   const int* ord = order + static_cast<size_t>(tile) * L;
@@ -135,7 +157,8 @@ __global__ void __launch_bounds__(kTileRays)
       const float tlo = nan_max(nan_max(nan_min(ax, bx), nan_min(ay, by)), nan_min(az, bz));
       const float thi = nan_min(nan_min(nan_max(ax, bx), nan_max(ay, by)), nan_max(az, bz));
       const float box_entry = nan_max(tlo, 0.f);
-      const bool enters = (thi >= box_entry) && (box_entry < best_t) && (box_entry < md);
+      const float bt_now = least(best_t);
+      const bool enters = (thi >= box_entry) && (box_entry < bt_now) && (box_entry < md);
       test = __syncthreads_or(enters) != 0;
     }
     if (test) {
@@ -145,43 +168,70 @@ __global__ void __launch_bounds__(kTileRays)
       for (int i = threadIdx.x; i < cluster * kRowFloat4; i += blockDim.x) rows[i] = src[i];
       __syncthreads();
       const int base = cid * cluster;
-      for (int k = 0; k < cluster; ++k) {
-        const float4 a = rows[kRowFloat4 * k];
-        const float4 b = rows[kRowFloat4 * k + 1];
-        const float4 c = rows[kRowFloat4 * k + 2];
-        const float4 e = rows[kRowFloat4 * k + 3];
-        const float dn = dot3(dx, dy, dz, a.x, a.y, a.z);
-        const float on = dot3(ox, oy, oz, a.x, a.y, a.z);
-        const float safe_dn = fabsf(dn) < kEps ? 1.0f : dn;
-        const float t = __fdiv_rn(__fsub_rn(c.y, on), safe_dn);
-        const float deu = dot3(dx, dy, dz, a.w, b.x, b.y);
-        const float oeu = dot3(ox, oy, oz, a.w, b.x, b.y);
-        const float dev = dot3(dx, dy, dz, b.z, b.w, c.x);
-        const float oev = dot3(ox, oy, oz, b.z, b.w, c.x);
-        const float u = __fadd_rn(__fsub_rn(oeu, c.z), __fmul_rn(t, deu));
-        const float v = __fadd_rn(__fsub_rn(oev, c.w), __fmul_rn(t, dev));
-        const int prim = base + k;
-        const bool ok = (e.x > 0.5f) && (fabsf(dn) >= kEps) && (t > kEps) && (u >= 0.f) &&
-                        (v >= 0.f) && (__fadd_rn(u, v) <= 1.f) && (t < best_t) && (t < md) &&
-                        (__float_as_int(e.y) != ex) && (prim >= rlo) && (prim < rhi);
-        if (ok) {
-          best_t = t;
-          best_prim = prim;
-          best_u = u;
-          best_v = v;
+      for (int k0 = 0; k0 < cluster; k0 += kSublanes) {
+#pragma unroll
+        for (int s = 0; s < kSublanes; ++s) {
+          const int k = k0 + s;
+          const float4 a = rows[kRowFloat4 * k];
+          const float4 b = rows[kRowFloat4 * k + 1];
+          const float4 c = rows[kRowFloat4 * k + 2];
+          const float4 e = rows[kRowFloat4 * k + 3];
+          const float dn = dot3(dx, dy, dz, a.x, a.y, a.z);
+          const float on = dot3(ox, oy, oz, a.x, a.y, a.z);
+          const float safe_dn = fabsf(dn) < kEps ? 1.0f : dn;
+          const float t = __fdiv_rn(__fsub_rn(c.y, on), safe_dn);
+          const float deu = dot3(dx, dy, dz, a.w, b.x, b.y);
+          const float oeu = dot3(ox, oy, oz, a.w, b.x, b.y);
+          const float dev = dot3(dx, dy, dz, b.z, b.w, c.x);
+          const float oev = dot3(ox, oy, oz, b.z, b.w, c.x);
+          const float u = __fadd_rn(__fsub_rn(oeu, c.z), __fmul_rn(t, deu));
+          const float v = __fadd_rn(__fsub_rn(oev, c.w), __fmul_rn(t, dev));
+          const int prim = base + k;
+          const bool ok = (e.x > 0.5f) && (fabsf(dn) >= kEps) && (t > kEps) && (u >= 0.f) &&
+                          (v >= 0.f) && (__fadd_rn(u, v) <= 1.f) && (t < best_t[s]) &&
+                          (t < md) && (__float_as_int(e.y) != ex) && (prim >= rlo) &&
+                          (prim < rhi);
+          if (ok) {
+            best_t[s] = t;
+            best_p[s] = prim;
+          }
         }
       }
       ++tested;
     }
     const float e_next = ent[min(j + 1, L - 1)];
-    const bool done_early = (best_prim >= 0) && (best_t < ea);
-    const bool open = !done_early && (best_t > e_next) && (me >= e_next);
+    bool done_early = false;
+#pragma unroll
+    for (int s = 0; s < kSublanes; ++s) done_early |= (best_p[s] >= 0) && (best_t[s] < ea);
+    const bool open = !done_early && (least(best_t) > e_next) && (me >= e_next);
     const int any_open = __syncthreads_or(open);
     walk = (j + 1 < L) && (e_next < kF32Max) && any_open;
   }
 
-  t_out[r] = best_t;
-  prim_out[r] = best_prim;
+#pragma unroll
+  for (int h = kSublanes / 2; h >= 1; h /= 2) {
+#pragma unroll
+    for (int s = 0; s < h; ++s) {
+      if (best_t[s + h] < best_t[s]) {
+        best_t[s] = best_t[s + h];
+        best_p[s] = best_p[s + h];
+      }
+    }
+  }
+  float best_u = 0.f, best_v = 0.f;
+  if (best_p[0] >= 0) {
+    const float4* row = tris + static_cast<size_t>(best_p[0]) * kRowFloat4;
+    const float4 a = row[0], b = row[1], c = row[2];
+    const float t = best_t[0];
+    const float deu = dot3(dx, dy, dz, a.w, b.x, b.y);
+    const float oeu = dot3(ox, oy, oz, a.w, b.x, b.y);
+    const float dev = dot3(dx, dy, dz, b.z, b.w, c.x);
+    const float oev = dot3(ox, oy, oz, b.z, b.w, c.x);
+    best_u = __fadd_rn(__fsub_rn(oeu, c.z), __fmul_rn(t, deu));
+    best_v = __fadd_rn(__fsub_rn(oev, c.w), __fmul_rn(t, dev));
+  }
+  t_out[r] = best_t[0];
+  prim_out[r] = best_p[0];
   u_out[r] = best_u;
   v_out[r] = best_v;
   if (threadIdx.x == 0) tested_out[tile] = tested;

@@ -1,1 +1,3 @@
-"""I/O: the built-in scene configs (port of ``hikari_tpu.io``)."""
+"""I/O (port of ``hikari_tpu.io``): the built-in scene configs
+(``scenes``), PNG output and image metrics (``image``) and the frame-state
+checkpoint (``checkpoint``)."""

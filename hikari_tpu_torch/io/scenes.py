@@ -1,15 +1,20 @@
 """Built-in scene configs — the port of ``hikari_tpu.io.scenes``. Each
 constructor returns (Scene, Camera, RenderSettings) matching the
-reference's example scenes (examples/*.rs).
+reference's example scenes (examples/*.rs); ``CONFIGS`` maps the five
+names to them.
 
-Ported so far: the Cornell box, as its procedural replica (the JAX
-package falls back to the same geometry when cornell.glb is absent), and
-the city config with its procedural city (the JAX package's stand-in when
-the City glTF geometry is absent). glTF loading waits for ``io/gltf.py``,
-which is not ported yet.
+The Cornell box is its procedural replica (the JAX package falls back to
+the same geometry when cornell.glb is absent); the city config builds the
+procedural city (the JAX package's stand-in when the City glTF geometry is
+absent); ``scene_config`` builds the procedural Cornell box under the sun,
+as the JAX package's FlightHelmet config does without the asset. glTF
+loading waits for ``io/gltf.py``, which is not ported yet: with the
+FlightHelmet asset present ``scene_config`` raises.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -107,6 +112,106 @@ def cornell_config(size: int = 512, device=None):
     return scene, cam, settings
 
 
+def minimal_scene() -> Scene:
+    """reference examples/minimal.rs:26-52 — plane + cube + sun."""
+    sun = _sun_from_euler(-np.pi / 4, np.pi / 4, 0.0, 10000.0)
+    scene = Scene(materials=[], directional_light=sun)
+    green = scene.add_material(Material(base_color=(0.3, 0.5, 0.3, 1.0)))
+    tan = scene.add_material(Material(base_color=(0.8, 0.7, 0.6, 1.0)))
+    plane = scene.add_mesh(plane_mesh(5.0))
+    cube = scene.add_mesh(cube_mesh(1.0))
+    scene.add_instance(Instance(plane, green))
+    scene.add_instance(Instance(cube, tan, _transform((0.0, 0.5, 0.0))))
+    return scene
+
+
+def minimal_config(width: int = 512, height: int = 512, device=None):
+    """BASELINE config 2: 'minimal.rs single mesh: full path trace 2 bounces
+    + emissive sampling'. The camera lives on ``device``, the CUDA card
+    unless the caller names another."""
+    scene = minimal_scene()
+    cam = Camera.from_lookat(eye=(-2.0, 2.5, 5.0), target=(0.0, 0.0, 0.0), device=device)
+    settings = RenderSettings(
+        width=width, height=height, indirect_bounces=2, upscale=Upscale.none()
+    )
+    return scene, cam, settings
+
+
+def simple_scene() -> Scene:
+    """reference examples/simple.rs:54-246 (subset: the Bevy-shape
+    entities): ground cube, plane, two cubes, two emissive spheres, sun."""
+    sun = _sun_from_euler(-np.pi / 4, np.pi / 4, 0.0, 10000.0)
+    scene = Scene(materials=[], directional_light=sun)
+    ground = scene.add_material(Material(base_color=(0.3, 0.5, 0.3, 1.0)))
+    white = scene.add_material(Material(base_color=(1.0, 1.0, 1.0, 1.0)))
+    pink = scene.add_material(Material(base_color=(1.0, 0.08, 0.58, 1.0)))
+    aqua = scene.add_material(Material(base_color=(0.5, 1.0, 0.83, 1.0)))
+    em_a = scene.add_material(Material(base_color=(1, 1, 1, 1), emissive=(1.0, 1.0, 1.0, 0.5)))
+    em_b = scene.add_material(Material(base_color=(1, 1, 1, 1), emissive=(1.0, 1.0, 1.0, 0.1)))
+    cube = scene.add_mesh(cube_mesh(1.0))
+    plane = scene.add_mesh(plane_mesh(1.0))
+    sphere = scene.add_mesh(uv_sphere_mesh(1.0, 24, 12))
+    scene.add_instance(
+        Instance(cube, ground, _transform((0, -5.0, 0), None, (200.0, 10.0, 200.0)))
+    )
+    wall = _euler_xyz_matrix(0, 0, np.pi / 2)
+    scene.add_instance(Instance(plane, white, _transform((4.0, 1.0, 0.0), wall, (4.0, 4.0, 4.0))))
+    scene.add_instance(Instance(cube, pink, _transform((-2.0, 0.5, 2.0))))
+    scene.add_instance(Instance(cube, aqua, _transform((2.0, 0.5, -2.0))))
+    scene.add_instance(Instance(sphere, em_a, _transform((0.0, 4.0, 0.0), None, (0.8,) * 3)))
+    scene.add_instance(Instance(sphere, em_b, _transform((5.0, 6.0, -5.0), None, (0.5,) * 3)))
+    return scene
+
+
+def simple_config(width: int = 512, height: int = 512, device=None):
+    """BASELINE config 3: ReSTIR temporal reservoir reuse + motion vectors
+    (the default settings: SMAA TU4x at 2x, TAA, denoise, indirect spatial
+    reuse). The camera lives on ``device``, the CUDA card unless the
+    caller names another."""
+    scene = simple_scene()
+    cam = Camera.from_lookat(eye=(-10.0, 2.5, 20.0), target=(0.0, 0.0, 0.0), device=device)
+    settings = RenderSettings(width=width, height=height, temporal_reuse=True)
+    return scene, cam, settings
+
+
+# Where ``scene_config`` looks for the reference's assets (a directory
+# holding models/FlightHelmet/FlightHelmet.gltf) when not given one.
+ASSETS_ENV = "HIKARI_REFERENCE_ASSETS"
+FLIGHT_HELMET = os.path.join("models", "FlightHelmet", "FlightHelmet.gltf")
+
+
+def flight_helmet_scene(assets: str | None = None) -> Scene:
+    """The scene of reference examples/scene.rs as the JAX package's
+    ``gltf_scene("FlightHelmet")`` builds it without the asset: the
+    procedural Cornell box under a 10,000-lux sun at euler (-1.0, 0.6, 0).
+    ``assets`` (default: the ``HIKARI_REFERENCE_ASSETS`` environment
+    variable) is the reference's asset directory; where it holds the
+    FlightHelmet glTF this raises NotImplementedError, since glTF loading
+    and texture sampling are not ported yet."""
+    assets = os.environ.get(ASSETS_ENV) if assets is None else assets
+    if assets and os.path.exists(os.path.join(assets, FLIGHT_HELMET)):
+        raise NotImplementedError(
+            f"{os.path.join(assets, FLIGHT_HELMET)} needs glTF loading and texture sampling, "
+            "which are not ported yet (ROADMAP.md queue 1 item 1, 'Large-scene leftovers': "
+            "io/gltf.py and device texture sampling)"
+        )
+    scene = Scene(materials=[], directional_light=_sun_from_euler(-1.0, 0.6, 0.0, 10000.0))
+    return _procedural_cornell(scene)
+
+
+def scene_config(width: int = 512, height: int = 512, device=None, assets: str | None = None):
+    """BASELINE config 4: spatial reservoir reuse (indirect and emissive) +
+    the denoise chain, on ``flight_helmet_scene(assets)``. The camera lives
+    on ``device``, the CUDA card unless the caller names another."""
+    scene = flight_helmet_scene(assets)
+    cam = Camera.from_lookat(eye=(1.2, 1.0, 1.2), target=(0.0, 0.4, 0.0), device=device)
+    settings = RenderSettings(
+        width=width, height=height, indirect_spatial_reuse=True, emissive_spatial_reuse=True,
+        denoise=True,
+    )
+    return scene, cam, settings
+
+
 def procedural_city(scene: Scene, blocks: int = 8, seed: int = 7, detail: bool = False) -> Scene:
     """Large-scene stand-in for the City config: a grid of buildings with
     varied heights, a ground plane, street lamps (emissive spheres) and the
@@ -172,3 +277,12 @@ def city_config(width: int = 512, height: int = 512, device=None):
         denoise=True,
     )
     return scene, cam, settings
+
+
+CONFIGS = {
+    "cornell": cornell_config,
+    "minimal": minimal_config,
+    "simple": simple_config,
+    "scene": scene_config,
+    "city": city_config,
+}

@@ -30,6 +30,14 @@ def texel(img, y, x):
     return gather_pixels(img, y, x)
 
 
+def pack_rows(parts):
+    """Pack K same-shape 2D planes into an (H*W, K) row table whose row
+    ``y*W + x`` holds every plane's value at pixel (y, x), so one row
+    gather fetches all K. The JAX package's layout notes for the TPU (one
+    transpose of flattened planes) do not apply here."""
+    return torch.stack(parts, dim=-1).reshape(-1, len(parts))
+
+
 def pixel_grid(h: int, w: int, device):
     """(ys, xs) int64 index planes of an (h, w) image."""
     return torch.meshgrid(

@@ -93,7 +93,17 @@ def trace_rays(
     the cluster-major scatter search, which returns the exact closest hit
     and ignores ``early_distance``, as in the JAX package. Each runs its
     kernel on CUDA and its twin on the CPU. "tiled" and "bvh" are not
-    ported yet and raise NotImplementedError."""
+    ported yet and raise NotImplementedError.
+
+    Among hits at exactly equal t the searches keep the JAX kernels'
+    rules. "pallas" and "auto" (K1) and "pallas_tiled" (K2, over all the
+    clusters a tile walks) keep a best per (prim mod 8) sublane and halve
+    the eight towards the lower sublane unless the upper one is strictly
+    nearer, so the sublanes win in the order 0, 4, 2, 6, 1, 5, 3, 7 (a
+    triangle duplicated at prims 1, 4 and 8 returns prim 8). "scatter"
+    (K3) applies that rule within each cluster, then keeps the first
+    cluster among equal t. "bruteforce" keeps the lowest prim among equal
+    t, as the JAX ``_trace_bruteforce`` does."""
     global trace_calls
     if method in _NOT_PORTED:
         raise NotImplementedError(
@@ -128,7 +138,8 @@ def trace_rays(
         t, prim, u, v = trace_scatter(*pack_clusters(scene, SCATTER_CLUSTER), o, d, maxd, excl,
                                       lo, hi)
     else:
-        t, prim, u, v = closest_hit(o, d, maxd, excl, lo, hi, pack_triangles(scene))
+        tie = "bruteforce" if method == "bruteforce" else "pallas"
+        t, prim, u, v = closest_hit(o, d, maxd, excl, lo, hi, pack_triangles(scene), tie)
     inst = torch.where(prim >= 0, scene.tri_inst[prim.clamp(min=0)], -1).to(torch.int32)
     return Hit(
         t=t.reshape(shape),

@@ -6,8 +6,12 @@ K1b ``_kernel_streamed``). ``closest_hit`` launches the kernel for CUDA
 tensors and runs the twin ``closest_hit_reference`` only for CPU tensors;
 on a CUDA tensor it launches or raises, it never falls back.
 
-Tie rule (kernel and twin): among pairs with equal t the lowest prim id
-wins — the JAX brute-force path's rule (see the note in the kernel source).
+Tie rule (kernel and twin), the JAX kernel's: eight running bests per
+ray, triangle ``p`` to best ``p mod 8`` (K1's sublanes), each replaced
+only on a strict ``<``; then ``tie="pallas"`` halves them 8 -> 4 -> 2 -> 1
+as ``pallas_kernel.py _reduce_sublanes`` does (among equal t the sublanes
+win in the order 0, 4, 2, 6, 1, 5, 3, 7), and ``tie="bruteforce"`` takes
+the least t, then the lowest prim (the JAX ``_trace_bruteforce`` rule).
 
 The kernel is built at first use from the repo's source with ``nvcc``
 into ``hikari_tpu_torch/_build/`` and bound through ctypes
@@ -25,10 +29,16 @@ import torch
 from hikari_tpu_torch.config import F32_EPSILON, F32_MAX
 from hikari_tpu_torch.utils.nvcc import build_library, check_kernel_arg
 
-# Kernel launches made by ``closest_hit`` (one per call on CUDA tensors).
+# Kernel launches made by ``closest_hit`` (one per call on CUDA tensors),
+# and those of them whose table is larger than one of the TPU kernel's
+# 2,048-triangle tiles (the regime of the streamed K1b).
 launches = 0
+streamed_launches = 0
+TPU_TRI_TILE = 2048
 
 PACK_WIDTH = 16
+SUBLANES = 8  # the JAX kernel's per-sublane bests (tie rule)
+TIE_RULES = ("pallas", "bruteforce")
 # Pairs per chunk of the twin: bounds its (rays x triangles) temporaries.
 RAY_CHUNK_PAIRS = 1 << 22
 
@@ -63,12 +73,41 @@ def pack_triangles(scene, count: int | None = None) -> torch.Tensor:
     ).contiguous()
 
 
-def closest_hit_reference(o, d, maxd, excl, lo, hi, packed):
-    """Plain PyTorch twin of the kernel, with its exact contract and
-    operation order: o, d (R,3) f32; maxd (R,) f32; excl, lo, hi (R,) i32;
-    packed (P,16) from ``pack_triangles``. Returns (t, prim i32, u, v),
-    each (R,). Chunked over rays so the (rays x triangles) intermediates
-    stay under ``RAY_CHUNK_PAIRS`` elements."""
+def reduce_sublanes(t8, p8, u8, v8, tie: str = "pallas"):
+    """The final 8 -> 1 step over per-sublane bests (..., 8): ``"pallas"``
+    halves 8 -> 4 -> 2 -> 1, taking the upper half only where it is
+    strictly nearer (``pallas_kernel.py _reduce_sublanes``);
+    ``"bruteforce"`` takes the least t, then the lowest prim, scanning the
+    sublanes in order as the kernel does. Returns (t, prim, u, v) (...,)."""
+    if tie == "pallas":
+        h = SUBLANES // 2
+        while h:
+            better = t8[..., h : 2 * h] < t8[..., :h]
+            t8, p8, u8, v8 = (
+                torch.where(better, x[..., h : 2 * h], x[..., :h]) for x in (t8, p8, u8, v8)
+            )
+            h //= 2
+        return t8[..., 0], p8[..., 0], u8[..., 0], v8[..., 0]
+    if tie != "bruteforce":
+        raise ValueError(f"unknown tie rule {tie!r}: one of {TIE_RULES}")
+    t, p, u, v = t8[..., 0], p8[..., 0], u8[..., 0], v8[..., 0]
+    for s in range(1, SUBLANES):
+        ts, ps = t8[..., s], p8[..., s]
+        better = (ts < t) | ((ts == t) & (ps < p))
+        t, p = torch.where(better, ts, t), torch.where(better, ps, p)
+        u, v = torch.where(better, u8[..., s], u), torch.where(better, v8[..., s], v)
+    return t, p, u, v
+
+
+def closest_hit_reference(o, d, maxd, excl, lo, hi, packed, tie: str = "pallas"):
+    """Plain PyTorch twin of the kernel, with its exact contract, operation
+    order and tie rule: o, d (R,3) f32; maxd (R,) f32; excl, lo, hi (R,)
+    i32; packed (P,16) from ``pack_triangles``; ``tie`` "pallas" or
+    "bruteforce" (module docstring). Returns (t, prim i32, u, v), each
+    (R,). Chunked over rays so the (rays x triangles) intermediates stay
+    under ``RAY_CHUNK_PAIRS`` elements."""
+    if tie not in TIE_RULES:
+        raise ValueError(f"unknown tie rule {tie!r}: one of {TIE_RULES}")
     R, P = o.shape[0], packed.shape[0]
     dev = o.device
     init_t = torch.clamp(maxd, max=F32_MAX)
@@ -79,13 +118,18 @@ def closest_hit_reference(o, d, maxd, excl, lo, hi, packed):
     if R == 0 or P == 0:
         return t_out, prim_out, u_out, v_out
 
+    # Pad to whole sublane rows with invalid triangles: prim p is column
+    # p mod 8 of row p // 8.
+    P8 = -(-P // SUBLANES) * SUBLANES
+    if P8 != P:
+        packed = torch.cat([packed, packed.new_zeros((P8 - P, PACK_WIDTH))])
     col = [packed[:, k][None, :] for k in range(12)]
     nx, ny, nz, eux, euy, euz, evx, evy, evz, cn, cu, cv = col
     valid = (packed[:, 12] > 0.5)[None, :]
     inst = packed[:, 13].contiguous().view(torch.int32)[None, :]
-    prim_ids = torch.arange(P, dtype=torch.int32, device=dev)[None, :]
+    prim_ids = torch.arange(P8, dtype=torch.int32, device=dev)[None, :]
 
-    chunk = max(1, RAY_CHUNK_PAIRS // P)
+    chunk = max(1, RAY_CHUNK_PAIRS // P8)
     for s in range(0, R, chunk):
         e = min(R, s + chunk)
         ox, oy, oz = (o[s:e, k : k + 1] for k in range(3))
@@ -112,14 +156,18 @@ def closest_hit_reference(o, d, maxd, excl, lo, hi, packed):
             & (prim_ids >= lo[s:e, None])
             & (prim_ids < hi[s:e, None])
         )
-        t = torch.where(ok, t, F32_MAX)
-        j = torch.argmin(t, dim=1, keepdim=True)  # first minimum: lowest prim
-        bt = t.gather(1, j)[:, 0]
-        hit = bt < init_t[s:e]
-        t_out[s:e] = torch.where(hit, bt, init_t[s:e])
-        prim_out[s:e] = torch.where(hit, j[:, 0].to(torch.int32), -1)
-        u_out[s:e] = torch.where(hit, u.gather(1, j)[:, 0], 0.0)
-        v_out[s:e] = torch.where(hit, v.gather(1, j)[:, 0], 0.0)
+        n = e - s
+        shape8 = (n, P8 // SUBLANES, SUBLANES)
+        tm = torch.where(ok, t, F32_MAX).reshape(shape8)
+        j = torch.argmin(tm, dim=1, keepdim=True)  # first minimum: the sublane's lowest prim
+        bt = tm.gather(1, j)[:, 0]
+        init8 = init_t[s:e, None].expand(n, SUBLANES)
+        hit = bt < init8
+        t8 = torch.where(hit, bt, init8)
+        p8 = torch.where(hit, prim_ids.expand(n, P8).reshape(shape8).gather(1, j)[:, 0], -1)
+        u8 = torch.where(hit, u.reshape(shape8).gather(1, j)[:, 0], 0.0)
+        v8 = torch.where(hit, v.reshape(shape8).gather(1, j)[:, 0], 0.0)
+        t_out[s:e], prim_out[s:e], u_out[s:e], v_out[s:e] = reduce_sublanes(t8, p8, u8, v8, tie)
     return t_out, prim_out, u_out, v_out
 
 
@@ -132,7 +180,7 @@ def build() -> float:
     start = time.perf_counter()
     lib, build_log = build_library(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.hikari_closest_hit.argtypes = [ptr] * 7 + [i32, i32] + [ptr] * 5
+    lib.hikari_closest_hit.argtypes = [ptr] * 7 + [i32] * 3 + [ptr] * 5
     lib.hikari_closest_hit.restype = i32
     lib.hikari_cuda_error_string.argtypes = [i32]
     lib.hikari_cuda_error_string.restype = ctypes.c_char_p
@@ -140,13 +188,15 @@ def build() -> float:
     return time.perf_counter() - start
 
 
-def closest_hit(o, d, maxd, excl, lo, hi, packed):
+def closest_hit(o, d, maxd, excl, lo, hi, packed, tie: str = "pallas"):
     """Closest hit of every ray: (t, prim i32, u, v), each (R,). Same
     arguments as ``closest_hit_reference``. CPU tensors run the twin; CUDA
     tensors launch the kernel (one launch per call) or raise."""
-    global launches
+    global launches, streamed_launches
+    if tie not in TIE_RULES:
+        raise ValueError(f"unknown tie rule {tie!r}: one of {TIE_RULES}")
     if o.device.type == "cpu":
-        return closest_hit_reference(o, d, maxd, excl, lo, hi, packed)
+        return closest_hit_reference(o, d, maxd, excl, lo, hi, packed, tie)
     if o.device.type != "cuda":
         raise NotImplementedError(f"closest_hit: no kernel for device {o.device}")
     R, P = o.shape[0], packed.shape[0]
@@ -174,7 +224,8 @@ def closest_hit(o, d, maxd, excl, lo, hi, packed):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib.hikari_closest_hit(
             o.data_ptr(), d.data_ptr(), maxd.data_ptr(), excl.data_ptr(), lo.data_ptr(),
-            hi.data_ptr(), packed.data_ptr(), P, R, t.data_ptr(), prim.data_ptr(),
+            hi.data_ptr(), packed.data_ptr(), P, R, int(tie == "bruteforce"), t.data_ptr(),
+            prim.data_ptr(),
             u.data_ptr(), v.data_ptr(), stream,
         )
     if err:
@@ -183,4 +234,5 @@ def closest_hit(o, d, maxd, excl, lo, hi, packed):
         )
     if R:
         launches += 1
+        streamed_launches += int(P > TPU_TRI_TILE)
     return t, prim, u, v

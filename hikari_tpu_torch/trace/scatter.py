@@ -49,13 +49,12 @@ import torch
 from torch.profiler import record_function
 
 from hikari_tpu_torch.config import F32_EPSILON, F32_MAX
-from hikari_tpu_torch.trace.closest_hit import PACK_WIDTH
+from hikari_tpu_torch.trace.closest_hit import PACK_WIDTH, SUBLANES, reduce_sublanes
 from hikari_tpu_torch.trace.tiled import safe_inv_dir
 from hikari_tpu_torch.utils.nvcc import build_library, check_kernel_arg
 
 CLUSTER = 128  # triangles per cluster
 BLOCK_R = 128  # items per kernel block
-SUBLANES = 8  # the JAX kernel's per-sublane bests (tie rule)
 # Item fields, rows of the (FIELDS, CAP) f32 array: o(3) d(3) maxd, then
 # excl, lo, hi as int32 bits, then valid (0 or 1).
 FIELDS = 11
@@ -221,14 +220,8 @@ def scatter_items_reference(meta, fields, packed):
         bp = torch.where(found, prim.expand_as(ok).reshape(tm.shape).gather(2, i)[:, :, 0], -1)
         bu = torch.where(found, u.reshape(tm.shape).gather(2, i)[:, :, 0], 0.0)
         bv = torch.where(found, v.reshape(tm.shape).gather(2, i)[:, :, 0], 0.0)
-        h = SUBLANES // 2
-        while h:  # halve 8 -> 4 -> 2 -> 1: the upper half only when strictly nearer
-            better = bt[..., h : 2 * h] < bt[..., :h]
-            bt, bp, bu, bv = (
-                torch.where(better, x[..., h : 2 * h], x[..., :h]) for x in (bt, bp, bu, bv)
-            )
-            h //= 2
-        t_out[b], p_out[b], u_out[b], v_out[b] = bt[..., 0], bp[..., 0], bu[..., 0], bv[..., 0]
+        # Halve 8 -> 4 -> 2 -> 1: the upper half only when strictly nearer.
+        t_out[b], p_out[b], u_out[b], v_out[b] = reduce_sublanes(bt, bp, bu, bv)
     return (t_out.reshape(cap), p_out.reshape(cap), u_out.reshape(cap), v_out.reshape(cap))
 
 

@@ -9,9 +9,11 @@ entries, plain torch) and a stable sort of each tile's clusters by entry,
 then the walk: the kernel for CUDA tensors, the twin only for CPU tensors.
 On a CUDA tensor ``tile_walk`` launches or raises; it never falls back.
 
-Tie rule (kernel and twin): within a cluster the lowest prim id wins
-among equal t; across clusters the cluster visited first wins (the best is
-replaced only on a strict ``<``). The walk order, and with it the any-hit
+Tie rule (kernel and twin), the JAX kernel's: eight running bests per
+ray over the whole walk, row ``j`` of a cluster (prim ``j mod 8``) to best
+``j mod 8``, each replaced only on a strict ``<``, halved 8 -> 4 -> 2 -> 1
+at the end as ``pallas_tiled.py:309-326`` does (``closest_hit.
+reduce_sublanes``). The walk order, and with it the any-hit
 result of a ray that stops at ``early``, follows the tiles' composition,
 the cluster size and the skip: ``trace/api.py`` sets them as the JAX
 package does.
@@ -31,7 +33,7 @@ import torch
 from torch.profiler import record_function
 
 from hikari_tpu_torch.config import F32_EPSILON, F32_MAX
-from hikari_tpu_torch.trace.closest_hit import PACK_WIDTH, pack_triangles
+from hikari_tpu_torch.trace.closest_hit import PACK_WIDTH, SUBLANES, pack_triangles, reduce_sublanes
 from hikari_tpu_torch.trace.tiled import (
     TILE_R,
     cluster_bounds,
@@ -83,21 +85,35 @@ def tile_walk_reference(packed, cmin, cmax, o, d, maxd, early, excl, lo, hi, ord
     It walks LOCKSTEP over tiles: at step j every tile still active tests
     its j-th cluster, then retires or not; a retired tile keeps its values.
     The retirement test before step j is the kernel's test after step
-    j-1, so each tile gets exactly its own walk. Within a cluster the first
-    minimum (lowest prim) wins; across clusters the best is replaced only
-    on a strict ``<``. With ``use_skip`` a tile tests its cluster only if
-    some ray enters the cluster's AABB before its current best."""
+    j-1, so each tile gets exactly its own walk. Each ray keeps eight
+    bests (row k of a cluster to best k mod 8, strict ``<``; the first
+    minimum of a sublane is its lowest prim), halved at the end. With
+    ``use_skip`` a tile tests its cluster only if some ray enters the
+    cluster's AABB before the least of its bests."""
     R = o.shape[0]
     T, L = order.shape
     dev = o.device
-    best_t = torch.clamp(maxd, max=F32_MAX).reshape(T, TILE_R).clone()
-    best_p = torch.full((T, TILE_R), -1, dtype=torch.int32, device=dev)
-    best_u = torch.zeros((T, TILE_R), dtype=torch.float32, device=dev)
-    best_v = torch.zeros((T, TILE_R), dtype=torch.float32, device=dev)
+    if cluster % SUBLANES:
+        raise ValueError(f"tile_walk: cluster {cluster} is not a multiple of {SUBLANES}")
+    init = torch.clamp(maxd, max=F32_MAX).reshape(T, TILE_R, 1)
+    best_t = init.expand(T, TILE_R, SUBLANES).clone()
+    best_p = torch.full((T, TILE_R, SUBLANES), -1, dtype=torch.int32, device=dev)
+    best_u = torch.zeros((T, TILE_R, SUBLANES), dtype=torch.float32, device=dev)
+    best_v = torch.zeros((T, TILE_R, SUBLANES), dtype=torch.float32, device=dev)
     tested = torch.zeros((T,), dtype=torch.int32, device=dev)
-    if T == 0 or L == 0:
-        return best_t.reshape(R), best_p.reshape(R), best_u.reshape(R), best_v.reshape(R), tested
+    if T > 0 and L > 0:
+        _walk(packed, cmin, cmax, o, d, maxd, early, excl, lo, hi, order, entry, ray_maxent,
+              cluster, use_skip, best_t, best_p, best_u, best_v, tested)
+    t, p, u, v = reduce_sublanes(best_t, best_p, best_u, best_v)
+    return t.reshape(R), p.reshape(R), u.reshape(R), v.reshape(R), tested
 
+
+def _walk(packed, cmin, cmax, o, d, maxd, early, excl, lo, hi, order, entry, ray_maxent,
+          cluster, use_skip, best_t, best_p, best_u, best_v, tested):
+    """The lockstep walk of ``tile_walk_reference``; updates the (T,
+    TILE_R, 8) bests and the tested counts in place."""
+    T, L = order.shape
+    dev = o.device
     ot, dt = o.reshape(T, TILE_R, 3), d.reshape(T, TILE_R, 3)
     inv = safe_inv_dir(d).reshape(T, TILE_R, 3)
     maxdt, earlyt = maxd.reshape(T, TILE_R), early.reshape(T, TILE_R)
@@ -122,7 +138,8 @@ def tile_walk_reference(packed, cmin, cmax, o, d, maxd, early, excl, lo, hi, ord
                 tlo = torch.minimum(a, b).amax(dim=-1)
                 thi = torch.maximum(a, b).amin(dim=-1)
                 box_entry = torch.clamp(tlo, min=0.0)
-                enters = (thi >= box_entry) & (box_entry < best_t[ti]) & (box_entry < maxdt[ti])
+                bt_now = best_t[ti].amin(dim=-1)
+                enters = (thi >= box_entry) & (box_entry < bt_now) & (box_entry < maxdt[ti])
                 keep = enters.any(dim=1)
                 ti, cid = ti[keep], cid[keep]
                 if ti.numel() == 0:
@@ -132,17 +149,17 @@ def tile_walk_reference(packed, cmin, cmax, o, d, maxd, early, excl, lo, hi, ord
             tested[ti] += 1
         e_next = entry[idx, min(j + 1, L - 1)][:, None]
         bt, bp = best_t[idx], best_p[idx]
-        done_early = (bp >= 0) & (bt < earlyt[idx])
-        ray_open = ~done_early & (bt > e_next) & (maxentt[idx] >= e_next)
+        done_early = ((bp >= 0) & (bt < earlyt[idx][..., None])).any(dim=-1)
+        ray_open = ~done_early & (bt.amin(dim=-1) > e_next) & (maxentt[idx] >= e_next)
         active[idx] = (j + 1 < L) & (e_next[:, 0] < F32_MAX) & ray_open.any(dim=1)
-    return best_t.reshape(R), best_p.reshape(R), best_u.reshape(R), best_v.reshape(R), tested
 
 
 def _test_clusters(blk, cid, k_ids, cluster, ti, ot, dt, maxdt, exclt, lot, hit_,
                    best_t, best_p, best_u, best_v):
     """Dense pair test of tiles ``ti`` (n,) against their clusters' rows
     ``blk`` (n, cluster, 16), in the kernel's operation order; updates the
-    bests of those tiles in place where a pair beats them strictly."""
+    (n, TILE_R, 8) sublane bests of those tiles in place where a pair
+    beats them strictly."""
     nx, ny, nz, eux, euy, euz, evx, evy, evz, cn, cu, cv = (
         blk[:, None, :, k] for k in range(12)
     )
@@ -174,14 +191,18 @@ def _test_clusters(blk, cid, k_ids, cluster, ti, ot, dt, maxdt, exclt, lot, hit_
         & (prim_ids >= lot[ti][..., None])
         & (prim_ids < hit_[ti][..., None])
     )
-    tm = torch.where(ok, t, F32_MAX)
-    k = torch.argmin(tm, dim=2, keepdim=True)  # first minimum: lowest prim
-    bt = tm.gather(2, k)[..., 0]
+    # Row 8*i + s goes to sublane s: (n, TILE_R, i, s).
+    n = ti.numel()
+    shape8 = (n, TILE_R, cluster // SUBLANES, SUBLANES)
+    tm = torch.where(ok, t, F32_MAX).reshape(shape8)
+    k = torch.argmin(tm, dim=2, keepdim=True)  # first minimum: the sublane's lowest prim
+    bt = tm.gather(2, k)[:, :, 0]
     better = bt < best_t[ti]
     best_t[ti] = torch.where(better, bt, best_t[ti])
-    best_p[ti] = torch.where(better, prim_ids.expand_as(tm).gather(2, k)[..., 0], best_p[ti])
-    best_u[ti] = torch.where(better, u.gather(2, k)[..., 0], best_u[ti])
-    best_v[ti] = torch.where(better, v.gather(2, k)[..., 0], best_v[ti])
+    best_p[ti] = torch.where(better, prim_ids.expand_as(ok).reshape(shape8).gather(2, k)[:, :, 0],
+                             best_p[ti])
+    best_u[ti] = torch.where(better, u.reshape(shape8).gather(2, k)[:, :, 0], best_u[ti])
+    best_v[ti] = torch.where(better, v.reshape(shape8).gather(2, k)[:, :, 0], best_v[ti])
 
 
 def build() -> float:
@@ -236,6 +257,8 @@ def tile_walk(packed, cmin, cmax, o, d, maxd, early, excl, lo, hi, order, entry,
         check_kernel_arg("tile_walk", name, x, dtype, shape, dev)
     if packed.data_ptr() % 16:
         raise ValueError("tile_walk: packed must be 16-byte aligned")
+    if cluster % SUBLANES:
+        raise ValueError(f"tile_walk: cluster {cluster} is not a multiple of {SUBLANES}")
     if cluster * PACK_WIDTH * 4 > MAX_SHARED_BYTES:
         raise ValueError(
             f"tile_walk: a cluster of {cluster} rows needs {cluster * PACK_WIDTH * 4} B of "

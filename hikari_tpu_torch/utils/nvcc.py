@@ -70,7 +70,7 @@ def check_kernel_arg(kernel: str, name: str, x, dtype, shape, device) -> None:
     """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on
     ``device``: what a kernel's C interface takes."""
     if x.device != device:
-        raise ValueError(f"{kernel}: {name} is on {x.device}, rays on {device}")
+        raise ValueError(f"{kernel}: {name} is on {x.device}, the other inputs on {device}")
     if x.dtype != dtype:
         raise TypeError(f"{kernel}: {name} must be {dtype}, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):

@@ -1,0 +1,20 @@
+"""Parity of whole frames of the ``scene`` config with ``hikari_tpu``: two
+frames at 48x62 without the post chain, as ``test_torch_config_minimal.py``
+checks them and with its tolerances (the even width: see there)."""
+
+import pytest
+import torch
+
+from test_torch_config_minimal import check_frame, config_world
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def world():
+    return config_world("scene", 48, 62)
+
+
+@pytest.mark.parametrize("frame", [0, 1])
+def test_scene_frame_matches(world, frame):
+    check_frame(world, frame)

@@ -384,6 +384,50 @@ def test_walk_twin_matches_jax_kernel(city, cluster, use_skip):
     assert tested.shape == (2,) and 0 < int(tested.min()) <= int(tested.max()) <= cmin.shape[0]
 
 
+@pytest.mark.parametrize("use_skip", [False, True])
+def test_walk_tie_rule_across_clusters(use_skip):
+    """One triangle duplicated at prims 1 and 4 of cluster 0 and prim 72 of
+    cluster 1 (row 8: sublane 0), every other row invalid, one tile of
+    rays through it. The JAX kernel carries its eight sublane bests across
+    the clusters and halves them at the end, so sublane 0 wins: prim 72,
+    from the cluster visited second. With the skip, cluster 1's box lies
+    at no ray's current best, so it is never tested, and sublane 4 beats
+    sublane 1 within cluster 0: prim 4. The twin gives the same."""
+    from hikari_tpu.trace.intersect import precompute_triangles as jax_precompute
+
+    cluster, L = 64, 2
+    rows = cluster * L
+    tri = np.array([[[-1.0, -1.0, 0.0], [1.0, -1.0, 0.0], [0.0, 1.0, 0.0]]], np.float32)
+    tris = np.repeat(tri, rows, axis=0)
+    valid = np.zeros(rows, np.float32)
+    valid[[1, 4, 72]] = 1.0
+    pre = jax_precompute(jnp.asarray(tris))
+    cols = [np.asarray(pre[k]).reshape(rows, -1) for k in ("n", "eu", "ev", "cn", "cu", "cv")]
+    rows16 = np.concatenate(cols + [valid[:, None], np.zeros((rows, 3), np.float32)], axis=1)
+    cmin = np.repeat(tri[0].min(0)[None], L, 0)
+    cmax = np.repeat(tri[0].max(0)[None], L, 0)
+    jrows = np.concatenate([rows16, np.zeros((rows, 112), np.float32)], axis=1)
+    jrows[[0, cluster], 16:22] = np.concatenate([cmin, cmax], axis=1)
+    rng = np.random.default_rng(5)
+    n = 512
+    xy = rng.uniform(-0.3, 0.3, (n, 2)).astype(np.float32)
+    front = rng.uniform(size=n) < 0.5
+    o = np.concatenate([xy, np.where(front, -5.0, 4.0)[:, None]], 1).astype(np.float32)
+    d = np.zeros((n, 3), np.float32)
+    d[:, 2] = np.where(front, 1.0, -1.0)
+    args = [o, d, np.full(n, 3.0e38, np.float32), np.zeros(n, np.float32),
+            np.full(n, -1, np.int32), np.zeros(n, np.int32), np.full(n, rows, np.int32)]
+    jt, jp, ju, jv = jpt.trace_pallas_tiled(
+        jnp.asarray(jrows), jnp.asarray(cmin), jnp.asarray(cmax), jnp.ones(L, bool),
+        *(jnp.asarray(a) for a in args), interpret=True, cluster=cluster, use_skip=use_skip)
+    t, prim, u, v, tested = tw.trace_tile_walk(
+        torch.from_numpy(rows16), torch.from_numpy(cmin), torch.from_numpy(cmax),
+        torch.ones(L, dtype=torch.bool), *(torch.from_numpy(a) for a in args), cluster, use_skip)
+    want, n_tested = (4, 1) if use_skip else (72, 2)
+    assert (prim.numpy() == want).all() and tested.tolist() == [n_tested]
+    _assert_hits_match(prim, t, u, v, jp, jt, ju, jv)
+
+
 def test_auto_dispatch_matches_jax_pallas_tiled(city):
     """On CPU tensors ``trace_rays(method="auto")`` above 2048 triangles
     sorts, pads and walks with the twin, and equals the JAX package's

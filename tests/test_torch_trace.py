@@ -113,10 +113,36 @@ def test_miss_value(cornell):
     np.testing.assert_array_equal(h.t.numpy(), 1.0)
 
 
-def test_tie_rule_lowest_prim():
-    """Coplanar duplicate triangles (the same quad in two instances) tie
-    exactly in t: the lowest prim id wins, as in the JAX brute-force path;
-    excluding its instance hands the hit to the duplicate."""
+def _duplicate_table(rows: int = 16):
+    """One triangle duplicated at prims 1, 4 and 8 of a ``rows``-triangle
+    table (the others invalid), packed for both packages: the JAX
+    kernel's f32 rows and the port's rows (instance id as int32 bits)."""
+    from hikari_tpu.trace.intersect import precompute_triangles as jax_precompute
+
+    tri = np.array([[[-1.0, -1.0, 0.0], [1.0, -1.0, 0.0], [0.0, 1.0, 0.0]]], np.float32)
+    tris = np.repeat(tri + np.array([0.0, 0.0, 50.0], np.float32), rows, axis=0)
+    tris[[1, 4, 8]] = tri
+    valid = np.zeros(rows, np.float32)
+    valid[[1, 4, 8]] = 1.0
+    pre = jax_precompute(jnp.asarray(tris))
+    cols = [np.asarray(pre[k]).reshape(rows, -1) for k in ("n", "eu", "ev", "cn", "cu", "cv")]
+    jrows = np.concatenate(cols + [valid[:, None], np.zeros((rows, 3), np.float32)], axis=1)
+    trows = jrows.copy()
+    trows[:, 13] = np.zeros(rows, np.int32).view(np.float32)
+    return jrows, trows
+
+
+@pytest.mark.parametrize("method", ["bruteforce", "pallas"])
+def test_tie_rule_lowest_prim(method):
+    """Exact ties in t. Coplanar duplicate quads (one quad in three
+    instances) tie under both rules on prim 0 or 1 (a quad's triangles sit
+    in sublanes 2k, 2k+1, which both rules resolve to the lower prim), as
+    the JAX package's same method gives; excluding instance 0 hands the
+    hit to the next duplicate. One triangle duplicated at prims 1, 4 and 8
+    tells the rules apart: "bruteforce" keeps the lowest prim (1), the JAX
+    ``_trace_bruteforce`` rule; "pallas" keeps prim 8 (sublane 0 beats 1
+    and 4 in the halving), as K1 does in interpret mode."""
+    from hikari_tpu.trace.pallas_kernel import trace_pallas
     from hikari_tpu_torch.scene.compile import Instance, Material, Scene, compile_scene
     from hikari_tpu_torch.scene.mesh import quad_mesh
 
@@ -133,15 +159,39 @@ def test_tie_rule_lowest_prim():
     d[:, 2] = -1.0
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     to, td = torch.from_numpy(o), torch.from_numpy(d)
-    th = tapi.trace_rays(tb, to, td)
+    th = tapi.trace_rays(tb, to, td, method=method)
     prim, inst = th.prim.numpy(), th.inst.numpy()
     assert (prim >= 0).all() and (prim < 2).all() and (inst == 0).all()
-    jh = japi.trace_rays(jb, jnp.asarray(o), jnp.asarray(d), method="bruteforce")
+    jh = japi.trace_rays(jb, jnp.asarray(o), jnp.asarray(d), method=method)
     np.testing.assert_array_equal(prim, np.asarray(jh.prim))
-    excl = tapi.trace_rays(tb, to, td, exclude_instance=0)
-    np.testing.assert_array_equal(excl.prim.numpy(), prim + 2)
-    np.testing.assert_array_equal(excl.inst.numpy(), 1)
+    # Without instance 0, prims 2k+2 and 2k+4 tie: "pallas" halves sublane 4
+    # into slot 0 before slot 2 can win, so it keeps the third duplicate.
+    excl = tapi.trace_rays(tb, to, td, exclude_instance=0, method=method)
+    j_excl = japi.trace_rays(jb, jnp.asarray(o), jnp.asarray(d), exclude_instance=0, method=method)
+    np.testing.assert_array_equal(excl.prim.numpy(), np.asarray(j_excl.prim))
+    dup = 1 if method == "bruteforce" else 2
+    np.testing.assert_array_equal(excl.prim.numpy(), prim + 2 * dup)
+    np.testing.assert_array_equal(excl.inst.numpy(), dup)
     np.testing.assert_array_equal(excl.t.numpy(), th.t.numpy())
+
+    jrows, trows = _duplicate_table()
+    R = 1024  # the resident JAX kernel takes whole 8 x 128-ray grid steps
+    o = np.tile(np.array([[0.1, -0.2, -5.0], [-0.3, 0.1, 4.0]], np.float32), (R // 2, 1))
+    d = np.tile(np.array([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0]], np.float32), (R // 2, 1))
+    maxd = np.full(R, 3.0e38, np.float32)
+    excl = np.full(R, -1, np.int32)
+    lo, hi = np.zeros(R, np.int32), np.full(R, 16, np.int32)
+    want = 1 if method == "bruteforce" else 8
+    t, p, _, _ = ch.closest_hit(*(torch.from_numpy(x) for x in (o, d, maxd, excl, lo, hi)),
+                                torch.from_numpy(trows), tie=method)
+    assert (p.numpy() == want).all()
+    np.testing.assert_allclose(t.numpy(), np.tile([5.0, 4.0], R // 2), rtol=1e-6)
+    if method == "pallas":
+        jt, jp, _, _ = trace_pallas(jnp.asarray(jrows), *(jnp.asarray(x) for x in (o, d, maxd, excl,
+                                                                                   lo, hi)),
+                                    interpret=True)
+        np.testing.assert_array_equal(np.asarray(jp), p.numpy())
+        np.testing.assert_allclose(t.numpy(), np.asarray(jt), rtol=1e-6)
 
 
 @pytest.fixture(scope="module")
@@ -205,14 +255,16 @@ def test_unported_backends_raise(cornell, method):
 
 def test_refine_and_hit_info_match_jax(cornell):
     """Tolerances: ids equal; normal/uv/refined t,u,v within 1e-5; positions
-    within 1e-6 relative + 1e-5 absolute (misses sit at 65535 units)."""
+    within 1e-6 relative + 1e-5 absolute (misses sit at 65535 units). Both
+    sides take the brute-force tie rule: rays that start inside a box hit
+    its bottom face and the coplanar floor at exactly equal t."""
     jb, tb = cornell
     o, d = _rays(400, 8, -0.9, 0.9)
     o[:, 1] += 1.0
     jo, jd = jnp.asarray(o), jnp.asarray(d)
     to, td = torch.from_numpy(o), torch.from_numpy(d)
     jh = japi.trace_rays(jb, jo, jd, method="bruteforce")
-    th = tapi.trace_rays(tb, to, td)
+    th = tapi.trace_rays(tb, to, td, method="bruteforce")
     _assert_hits_match(jh, th)
     for a, b in zip(japi.refine_hit(jb, jo, jd, jh), tapi.refine_hit(tb, to, td, th)):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-5, atol=1e-5)
@@ -226,7 +278,7 @@ def test_refine_and_hit_info_match_jax(cornell):
     # Shadow-ray occlusion of that info by a second trace.
     o2 = o + d * 0.05
     jh2 = japi.trace_rays(jb, jnp.asarray(o2), jd, method="bruteforce")
-    th2 = tapi.trace_rays(tb, torch.from_numpy(o2), td)
+    th2 = tapi.trace_rays(tb, torch.from_numpy(o2), td, method="bruteforce")
     jo2 = japi.occlude_hit_info(jnp.asarray(o2), jd, jh2, ji)
     to2 = tapi.occlude_hit_info(torch.from_numpy(o2), td, th2, ti)
     np.testing.assert_allclose(to2.position.numpy(), np.asarray(jo2.position), rtol=1e-6, atol=1e-5)
