@@ -26,11 +26,16 @@ Phases, each reported on its own line:
      one instance's prim range on half of them; prim and the clusters
      tested per tile equal, t/u/v within ATOL; CUDA-event times at (c) of
      the kernel, phase 1 with the sort, the whole ``trace_rays`` and the
-     twin, beside the kernel's bound. The scatter kernel against its twin
-     on every item, (e) on the (c) rays, with its hits against the tile
-     walk's, (f) on the (d) rays; CUDA-event times at (e) of the kernel,
-     phases A+B, the segment-min, the whole ``trace_rays(method="scatter")``
-     and the twin, beside the kernel's bound. [main]: 8 frames of
+     twin, beside the kernel's bound; the clusters tested per tile (max,
+     p50, p90) and the longest tile's own bound; the kernel's SASS
+     instructions per pair (``cuobjdump``) and the issue floor they give.
+     The scatter kernel against its twin on every item, (e) on the (c)
+     rays, with its hits against the tile walk's, (f) on the (d) rays;
+     CUDA-event times at (e) of the kernel, phases A+B, the segment-min, the
+     whole ``trace_rays(method="scatter")`` and the twin, beside the
+     kernel's bound and issue floor. The scatter kernel's count of blocks
+     naming a cluster outside the table must stay 0 after every case and
+     every path. [main]: 8 frames of
      ``city_path`` (512x512 without the post chain, every trace through the
      tile walk) and of ``city_bench_scatter`` (the city bench frame: 512x512
      output from 256x256 with the post chain and ``tracer="scatter"``,
@@ -272,6 +277,17 @@ def city_random_rays(scene, device, R=65536, seed=11):
             dev(excl, np.int32), dev(lo, np.int32), dev(hi, np.int32))
 
 
+def check_cluster_errors(where):
+    """The scatter kernel writes misses for a block whose cluster id lies
+    outside the table, and counts it: fail if any did."""
+    from hikari_tpu_torch.trace import scatter as sc
+
+    n = sc.cluster_errors()
+    if n:
+        raise AssertionError(f"{where}: the scatter kernel met {n} blocks with a cluster id "
+                             f"outside the table")
+
+
 def run_main_path(name, scene, cam, settings, device):
     """``FRAMES`` frames through ``render_frame`` with every launch count
     set to 0 just before and read just after. Checks that every trace went
@@ -302,6 +318,7 @@ def run_main_path(name, scene, cam, settings, device):
             dropped.append(sc.dropped - before)
     launches = {"closest_hit": ch.launches, "tile_walk": tw.launches, "scatter_items": sc.launches}
     traces = api.trace_calls
+    check_cluster_errors(name)
     # Closest-hit launches over tables above one TPU tile (K1b's regime),
     # part of the closest-hit count.
     launches_k1b = ch.streamed_launches
@@ -436,7 +453,11 @@ def tie_cases(device):
     prims 1, 4 and 8 returns prim 8 under "pallas" (sublane 0 wins the
     halving) and prim 1 under "bruteforce". K2: duplicates at prims 1 and 4
     of cluster 0 and 72 (row 8) of cluster 1 return prim 72: the eight
-    sublane bests carry across the clusters. Each kernel equals its twin."""
+    sublane bests carry across the clusters; duplicates at prims 8 and 16 of
+    cluster 0 and 64 (row 0) of cluster 1, all on sublane 0, return prim 8,
+    the first found, though the kernel's two halves of rows hold 16 and 64
+    (row groups 2 and 8) and 8 (group 1) apart. Each kernel equals its
+    twin."""
     import torch
 
     from hikari_tpu_torch.trace import closest_hit as ch
@@ -462,13 +483,16 @@ def tie_cases(device):
     order, entry, maxent = tw.tile_entries(bmin, bmax, cvalid, o, d, maxd, lo, hi, cluster)
     walk = (packed, bmin, bmax, o, d, maxd, early, excl, lo, hi, order, entry, maxent, cluster,
             False)
-    got, ref = tw.tile_walk(*walk), tw.tile_walk_reference(*walk)
-    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
-        raise AssertionError("tie case K2: kernel differs from its twin")
-    if not bool((got[1] == cluster + 8).all()) or got[4].tolist() != [2]:
-        raise AssertionError(f"tie case K2: prims {got[1].unique().tolist()}, tested {got[4].tolist()}")
-    log(f"[kernel] tie K2: duplicates at prims 1, 4 (cluster 0) and {cluster + 8} (cluster 1) -> "
-        f"prim {cluster + 8} on all 512 rays, 2 clusters tested, kernel = twin")
+    for prims, want in (((1, 4, cluster + 8), cluster + 8), ((8, 16, cluster), 8)):
+        walk = (duplicate_rows(2 * cluster, prims, device), *walk[1:])
+        got, ref = tw.tile_walk(*walk), tw.tile_walk_reference(*walk)
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"tie case K2 {prims}: kernel differs from its twin")
+        if not bool((got[1] == want).all()) or got[4].tolist() != [2]:
+            raise AssertionError(f"tie case K2 {prims}: prims {got[1].unique().tolist()}, "
+                                 f"tested {got[4].tolist()}")
+        log(f"[kernel] tie K2: duplicates at prims {', '.join(map(str, prims))} (cluster "
+            f"{cluster}) -> prim {want} on all 512 rays, 2 clusters tested, kernel = twin")
 
 
 def prim_cases(device):
@@ -683,6 +707,7 @@ def main():
     from hikari_tpu_torch.trace import closest_hit as ch
     from hikari_tpu_torch.trace import scatter as sc
     from hikari_tpu_torch.trace import tile_walk as tw
+    from hikari_tpu_torch.tools import ab_trace_kernels as ab
     from hikari_tpu_torch.tools import prims
     from hikari_tpu_torch.utils.nvcc import ptxas_summary
 
@@ -811,10 +836,17 @@ def main():
     # cluster bounds read once.
     walk_bytes = Rc * 64 + T * L * 8 + T * 4 + walk_c[0].numel() * 4 + L * 24
     tw_bound, tw_by = bound_ms(pairs * PAIR_FLOPS, walk_bytes)
+    tw_ipp = ab.per_pair(ab.kernel_sass(tw.SOURCE), "tile_walk")
+    t_max, t_p50, t_p90, _ = ab.tested_stats(tested)
+    longest = t_max * 512 * cluster
     log(f"[time] (c) {Rc} rays, {T} tiles x {L} clusters of {cluster}: {int(tested.sum())} "
         f"clusters tested ({pairs} pairs); K2 kernel {tw_ms:.4f} ms, bound {tw_bound:.4f} ms "
         f"({tw_by}); phase 1 + sort {entries_ms:.4f} ms; whole trace_rays {trace_ms:.4f} ms; "
         f"twin {tw_plain_ms:.4f} ms")
+    log(f"[time] (c) clusters tested per tile: max {t_max}, p50 {t_p50:g}, p90 {t_p90:g}; the "
+        f"longest tile alone on one SM at 1/{ab.NUM_SMS} of the FP32 rate: "
+        f"{longest * PAIR_FLOPS / (PEAK_FP32 / ab.NUM_SMS) * 1e3:.4f} ms; K2 SASS "
+        f"{tw_ipp:.2f} instructions a pair, issue floor {ab.issue_floor_ms(pairs, tw_ipp):.4f} ms")
 
     # ---- 4b. scatter kernel vs twin on the city shapes ----
     del walk_c, walk_d, got_c, phase1_c  # keep the kernel cases out of the later peaks
@@ -831,6 +863,7 @@ def main():
         err = compare(name, got, want)
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"{name}: K3 is not bitwise equal to its twin")
+        check_cluster_errors(name)
         used = int((meta[:, 1] > 0).sum())
         log(f"[kernel] {name}: {int(meta[:, 1].sum()) + n_drop} entered pairs, CAP "
             f"{items.shape[0]}, {used} used blocks of {meta.shape[0]}, dropped items {n_drop}")
@@ -866,10 +899,13 @@ def main():
     # Bytes: each item slot's 11 fields read and 4 results written, the
     # 128 rows of 64 B of each used block's cluster read.
     sc_bound, sc_by = bound_ms(sc_pairs * PAIR_FLOPS, 15 * 4 * cap_e + 64 * sc.CLUSTER * used_e)
+    sc_ipp = ab.per_pair(ab.kernel_sass(sc.SOURCE), "scatter_items")
     log(f"[time] (e) {Rc} rays, CAP {cap_e}, {used_e} used blocks ({sc_pairs} pairs): K3 kernel "
         f"{sc_ms:.4f} ms, bound {sc_bound:.4f} ms ({sc_by}); phases A+B with the item fields "
         f"{plan_ms:.4f} ms; segment-min {segmin_ms:.4f} ms; whole trace_rays(method='scatter') "
-        f"{sc_trace_ms:.4f} ms; twin {sc_plain_ms:.4f} ms")
+        f"{sc_trace_ms:.4f} ms; twin {sc_plain_ms:.4f} ms; K3 SASS {sc_ipp:.2f} instructions a "
+        f"pair, issue floor {ab.issue_floor_ms(sc_pairs, sc_ipp):.4f} ms")
+    check_cluster_errors("(e) timing")
     del plan_e, fields_e, got_e, hit_e, hit_c, meta_e, items_e, f_rays
 
     # ---- 4c. city_path and city_bench_scatter ----

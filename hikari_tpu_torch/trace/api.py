@@ -95,6 +95,11 @@ def trace_rays(
     kernel on CUDA and its twin on the CPU. "tiled" and "bvh" are not
     ported yet and raise NotImplementedError.
 
+    On the card "scatter" does not check its plan's cluster ids on the host
+    (that would sync every call): an item block naming a cluster outside
+    the table gets misses and counts in ``trace.scatter.cluster_errors()``,
+    which a caller reads (one sync) after a run to know it is 0.
+
     Among hits at exactly equal t the searches keep the JAX kernels'
     rules. "pallas" and "auto" (K1) and "pallas_tiled" (K2, over all the
     clusters a tile walks) keep a best per (prim mod 8) sublane and halve

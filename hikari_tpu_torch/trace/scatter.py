@@ -27,12 +27,18 @@ for incoherent large-scene rays — the port of ``hikari_tpu.trace.scatter``
 Closest-hit semantics are exact; ``early_distance`` is not taken (the
 trace API accepts and ignores it, as the JAX package does).
 
-Tie rule of the kernel and the twin — the JAX kernel's, which differs from
-K1's and K2's (lowest prim): triangle j of a cluster goes to sublane
-j mod 8, each sublane keeps its first minimum (strict ``<``, so the lowest
-prim of the sublane), and the eight bests are halved 8 -> 4 -> 2 -> 1,
-taking the upper half only when it is strictly nearer. Among equal t the
-sublanes win in the order 0, 4, 2, 6, 1, 5, 3, 7.
+Tie rule of the kernel and the twin — the JAX kernel's, as K1 and K2 keep
+it: triangle j of a cluster goes to sublane j mod 8, each sublane keeps its
+first minimum (strict ``<``, so the lowest prim of the sublane), and the
+eight bests are halved 8 -> 4 -> 2 -> 1, taking the upper half only when
+it is strictly nearer. Among equal t the sublanes win in the order
+0, 4, 2, 6, 1, 5, 3, 7.
+
+On the card the kernel runs persistent blocks over contiguous ranges of
+item blocks (``run_ranges``), so a cluster's rows stay in shared memory
+across its run. A block whose cluster id lies outside ``[0, L)`` writes
+misses and counts in ``cluster_errors()``; the wrapper does not read the
+device to check (no sync per call).
 
 The kernel is built at first use from the repo's source with ``nvcc``
 into ``hikari_tpu_torch/_build/`` and bound through ctypes
@@ -72,6 +78,13 @@ launches = 0
 # Entered (ray, cluster) pairs that ``trace_scatter`` dropped past its
 # capacity, summed over calls.
 dropped = 0
+# Per card, an int32 device counter of the item blocks with items whose
+# cluster id lay outside [0, L): the kernel wrote misses for them.
+# ``cluster_errors`` reads it (a sync), ``reset_cluster_errors`` zeroes it.
+_errors: dict = {}
+# Per card, the kernel's persistent blocks that fit at once (an occupancy
+# query, made at the card's first launch).
+_resident: dict = {}
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "scatter_items.cu"
 
@@ -234,19 +247,51 @@ def build() -> float:
     start = time.perf_counter()
     lib, build_log = build_library(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.hikari_scatter_items.argtypes = [ptr] * 3 + [i32] * 2 + [ptr] * 5
+    lib.hikari_scatter_items.argtypes = [ptr] * 4 + [i32] * 3 + [ptr] * 6
     lib.hikari_scatter_items.restype = i32
+    lib.hikari_scatter_items_grid.argtypes = []
+    lib.hikari_scatter_items_grid.restype = i32
     lib.hikari_scatter_items_error_string.argtypes = [i32]
     lib.hikari_scatter_items_error_string.restype = ctypes.c_char_p
     _lib = lib
     return time.perf_counter() - start
 
 
+def run_ranges(meta, grid: int):
+    """(grid, 4) i32: the item blocks of each of the kernel's ``grid``
+    persistent blocks, [w0, w1) then [t0, t1). With U the count of used
+    blocks (count > 0), the first ranges split [0, U) and the second split
+    [U, NB) evenly, so every block gets its share of the used blocks when
+    they come first (``scatter_plan``'s layout); together the ranges cover
+    every block once whatever the layout. Computed on ``meta``'s device,
+    without a sync."""
+    nb = meta.shape[0]
+    used = (meta[:, 1] > 0).sum()
+    g = torch.arange(grid + 1, dtype=torch.int64, device=meta.device)
+    w = torch.div(g * used, grid, rounding_mode="floor")
+    t = used + torch.div(g * (nb - used), grid, rounding_mode="floor")
+    return torch.stack([w[:-1], w[1:], t[:-1], t[1:]], dim=1).to(torch.int32)
+
+
+def cluster_errors() -> int:
+    """Item blocks with items whose cluster id lay outside [0, L), summed
+    over every card's kernel launches since the last reset (reads the
+    device)."""
+    return sum(int(x.item()) for x in _errors.values())
+
+
+def reset_cluster_errors() -> None:
+    """Zero the count that ``cluster_errors`` reads, on every card."""
+    for x in _errors.values():
+        x.zero_()
+
+
 def scatter_items(meta, fields, packed):
     """Per-item closest hit within the item's cluster: (t, prim i32, u, v),
     each (CAP,). Same arguments as ``scatter_items_reference``. CPU
     tensors run the twin; CUDA tensors launch the kernel (one launch per
-    call) or raise."""
+    call) or raise. On the card a block with items and a cluster id
+    outside [0, L) gets misses and counts in ``cluster_errors()``."""
     global launches
     if fields.device.type == "cpu":
         return scatter_items_reference(meta, fields, packed)
@@ -260,31 +305,41 @@ def scatter_items(meta, fields, packed):
         ("packed", packed, torch.float32, (L * CLUSTER, PACK_WIDTH)),
     ):
         check_kernel_arg("scatter_items", name, x, dtype, shape, dev)
-    if packed.data_ptr() % 16:
-        raise ValueError("scatter_items: packed must be 16-byte aligned")
+    if packed.data_ptr() % 16 or fields.data_ptr() % 16:
+        raise ValueError("scatter_items: packed and fields must be 16-byte aligned")
     if FIELDS * nb * BLOCK_R >= 2**31 or L * CLUSTER >= 2**31 // PACK_WIDTH:
         raise ValueError("scatter_items: too many items or triangles for int32 indexing")
-    if nb and not (L > 0 and 0 <= int(meta[:, 0].min()) and int(meta[:, 0].max()) < L):
-        raise ValueError(f"scatter_items: a block names a cluster outside [0, {L})")
     build()
     cap = nb * BLOCK_R
     t = torch.empty((cap,), dtype=torch.float32, device=dev)
     prim = torch.empty((cap,), dtype=torch.int32, device=dev)
     u = torch.empty((cap,), dtype=torch.float32, device=dev)
     v = torch.empty((cap,), dtype=torch.float32, device=dev)
+    if nb == 0:
+        return t, prim, u, v
+    errors = _errors.get(dev.index)
+    if errors is None:
+        errors = _errors[dev.index] = torch.zeros((1,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
+        resident = _resident.get(dev.index)
+        if resident is None:
+            resident = _resident[dev.index] = _lib.hikari_scatter_items_grid()
+            if resident <= 0:
+                raise RuntimeError("scatter_items: the card's occupancy query failed")
+        grid = min(resident, nb)
+        ranges = run_ranges(meta, grid)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib.hikari_scatter_items(
-            meta.data_ptr(), fields.data_ptr(), packed.data_ptr(), nb, L, t.data_ptr(),
-            prim.data_ptr(), u.data_ptr(), v.data_ptr(), stream,
+            meta.data_ptr(), fields.data_ptr(), packed.data_ptr(), ranges.data_ptr(), grid, nb,
+            L, t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(), errors.data_ptr(),
+            stream,
         )
     if err:
         raise RuntimeError(
             f"scatter_items kernel launch failed: "
             f"{_lib.hikari_scatter_items_error_string(err).decode()}"
         )
-    if nb:
-        launches += 1
+    launches += 1
     return t, prim, u, v
 
 

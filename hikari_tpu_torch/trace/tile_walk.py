@@ -48,8 +48,6 @@ launches = 0
 # Ray/triangle pairs per chunk of the twin: bounds its
 # (tiles, TILE_R, cluster) temporaries (2^24 f32 = 64 MB each).
 TILE_CHUNK_PAIRS = 1 << 24
-# Dynamic shared memory a block may use on Hopper (227 KB).
-MAX_SHARED_BYTES = 232448
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "tile_walk.cu"
 
@@ -227,7 +225,9 @@ def tile_walk(packed, cmin, cmax, o, d, maxd, early, excl, lo, hi, order, entry,
     """The walk of every tile: (t, prim i32, u, v) each (R,) and the
     clusters tested per tile (T,) i32. Same arguments as
     ``tile_walk_reference``. CPU tensors run the twin; CUDA tensors launch
-    the kernel (one launch per call) or raise."""
+    the kernel (one launch per call) or raise. A cluster whose two row
+    buffers and the walk's state exceed a block's shared memory raises
+    the launch's CUDA error."""
     global launches
     if o.device.type == "cpu":
         return tile_walk_reference(packed, cmin, cmax, o, d, maxd, early, excl, lo, hi, order,
@@ -259,11 +259,6 @@ def tile_walk(packed, cmin, cmax, o, d, maxd, early, excl, lo, hi, order, entry,
         raise ValueError("tile_walk: packed must be 16-byte aligned")
     if cluster % SUBLANES:
         raise ValueError(f"tile_walk: cluster {cluster} is not a multiple of {SUBLANES}")
-    if cluster * PACK_WIDTH * 4 > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"tile_walk: a cluster of {cluster} rows needs {cluster * PACK_WIDTH * 4} B of "
-            f"shared memory, more than the {MAX_SHARED_BYTES} B a block may use"
-        )
     if L * cluster >= 2**31 // PACK_WIDTH or T >= 2**31 // TILE_R:
         raise ValueError("tile_walk: too many rays or triangles for int32 indexing")
     build()
@@ -283,7 +278,8 @@ def tile_walk(packed, cmin, cmax, o, d, maxd, early, excl, lo, hi, order, entry,
         )
     if err:
         raise RuntimeError(
-            f"tile_walk kernel launch failed: {_lib.hikari_tile_walk_error_string(err).decode()}"
+            f"tile_walk kernel launch failed (cluster {cluster}): "
+            f"{_lib.hikari_tile_walk_error_string(err).decode()}"
         )
     if T:
         launches += 1

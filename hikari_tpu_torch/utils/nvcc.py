@@ -3,10 +3,10 @@ shared library with a plain C interface, loaded with ctypes (a plain C
 interface builds in seconds; a PyTorch extension takes minutes).
 
 The library goes into the gitignored ``hikari_tpu_torch/_build/``; its
-name carries a hash of the source and the flags, so an edit or a flag
-change builds a new one. Every kernel is compiled for Hopper (sm_90a)
-without multiply-add contraction, so it can match its plain twin bit for
-bit.
+name carries a hash of the source, the headers beside it and the flags,
+so an edit or a flag change builds a new one. Every kernel is compiled
+for Hopper (sm_90a) without multiply-add contraction, so it can match its
+plain twin bit for bit.
 """
 
 from __future__ import annotations
@@ -31,7 +31,11 @@ NVCC_FLAGS = [
 
 
 def library_path(source: Path) -> Path:
-    key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library's path: its name carries a hash of the source, the
+    headers beside it (``*.cuh``, which a source may include) and the flags."""
+    headers = sorted(source.parent.glob("*.cuh"))
+    text = source.read_bytes() + b"".join(h.read_bytes() for h in headers)
+    key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{source.stem}_{key[:16]}.so"
 
 

@@ -80,6 +80,22 @@ def jax_states(world):
     return states
 
 
+@pytest.fixture(scope="module")
+def jax_gbuffer(world):
+    """The JAX G-buffer of ``world`` at a frame, compiled and run once per
+    frame however many tests ask for it."""
+    cache = {}
+
+    def get(frame):
+        if frame not in cache:
+            cache[frame] = jax.jit(
+                lambda b: j_gbuffer(b, world["jcam"], jnp.int32(frame), world["js"])
+            )(world["jb"])
+        return cache[frame]
+
+    return get
+
+
 def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
@@ -112,14 +128,17 @@ def _gbuffer_from_jax(gb):
 
 
 @pytest.mark.parametrize("jitter", [False, True])
-def test_render_gbuffer_matches(world, jitter):
+def test_render_gbuffer_matches(world, jax_gbuffer, jitter):
     """``jitter``: TAA on moves the primary rays by the frame's Halton
     point (frame 3); the G-buffer itself does not depend on TAA."""
     kw = dict(taa=jc.Taa.JASMINE) if jitter else {}
     js = world["js"].replace(**kw)
     ts = world["ts"].replace(**({"taa": tc.Taa.JASMINE} if jitter else {}))
     frame = 3 if jitter else 0
-    want = jax.jit(lambda b: j_gbuffer(b, world["jcam"], jnp.int32(frame), js))(world["jb"])
+    if jitter:
+        want = jax.jit(lambda b: j_gbuffer(b, world["jcam"], jnp.int32(frame), js))(world["jb"])
+    else:
+        want = jax_gbuffer(frame)
     got = t_gbuffer(world["tb"], world["tcam"], frame, ts)
     assert got.position.shape == (H, W, 4)
     assert_gbuffer_close(got, want)
@@ -128,18 +147,18 @@ def test_render_gbuffer_matches(world, jitter):
     assert (got.instance >= 0).any() and (got.instance < 0).any()
 
 
-def test_full_screen_albedo_matches(world):
-    gb = jax.jit(lambda b: j_gbuffer(b, world["jcam"], jnp.int32(0), world["js"]))(world["jb"])
+def test_full_screen_albedo_matches(world, jax_gbuffer):
+    gb = jax_gbuffer(0)
     want = jax.jit(lambda b: jlight.full_screen_albedo(b, world["jcam"], gb))(world["jb"])
     got = tlight.full_screen_albedo(world["tb"], world["tcam"], _gbuffer_from_jax(gb))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
-def _pass_inputs(world, state):
+def _pass_inputs(jax_gbuffer, state):
     """One shared input for both packages: the JAX G-buffer and
     reservoirs of ``state`` (decompressed), converted for the port."""
     frame = int(state.frame_number)
-    gb = jax.jit(lambda b: j_gbuffer(b, world["jcam"], jnp.int32(frame), world["js"]))(world["jb"])
+    gb = jax_gbuffer(frame)
     tstate = frame_state_from_numpy(state, "cpu")
     return frame, gb, _gbuffer_from_jax(gb), state, tstate
 
@@ -166,10 +185,10 @@ def _compare_pass(jout, tout, name):
     [(False, 3), (False, 4), (True, 5), (True, 4)],
     ids=["sun-validation", "sun-sampling", "emissive-validation", "emissive-sampling"],
 )
-def test_direct_lit_pass_matches(world, jax_states, emissive_lit, frame):
+def test_direct_lit_pass_matches(world, jax_states, jax_gbuffer, emissive_lit, frame):
     """Both variants of ``direct_lit_pass`` on a validation frame
     (frame % interval == 0) and a sampling frame, from one shared state."""
-    frame, jgb, tgb, state, tstate = _pass_inputs(world, jax_states[frame])
+    frame, jgb, tgb, state, tstate = _pass_inputs(jax_gbuffer, jax_states[frame])
     key = "emissive_temporal" if emissive_lit else "direct_temporal"
     js, ts = world["js"], world["ts"]
     bank = jnp.asarray(blue_noise_bank())
@@ -190,8 +209,8 @@ def test_direct_lit_pass_matches(world, jax_states, emissive_lit, frame):
     _compare_pass(jout, tout, "emissive" if emissive_lit else "sun")
 
 
-def test_indirect_lit_pass_matches(world, jax_states):
-    frame, jgb, tgb, state, tstate = _pass_inputs(world, jax_states[4])
+def test_indirect_lit_pass_matches(world, jax_states, jax_gbuffer):
+    frame, jgb, tgb, state, tstate = _pass_inputs(jax_gbuffer, jax_states[4])
     bank = jnp.asarray(blue_noise_bank())
 
     def jpass(b, temporal, spatial):

@@ -283,6 +283,48 @@ def test_twin_matches_jax_kernel(city):
     _assert_hits_match(got, want)
 
 
+@pytest.mark.parametrize("layout", ["prefix", "scattered"])
+@pytest.mark.parametrize("grid", [1, 7, 64, 300])
+def test_run_ranges_cover_and_balance(layout, grid):
+    """The persistent blocks' ranges: every item block exactly once, the
+    used blocks split evenly (shares differ by at most one), and with the
+    used blocks first (``scatter_plan``'s layout) the first ranges hold
+    exactly the used blocks and the second exactly the empty tail."""
+    rng = np.random.default_rng(grid)
+    nb, n_used = 300, 173
+    count = np.zeros(nb, np.int32)
+    if layout == "prefix":
+        count[:n_used] = rng.integers(1, 129, n_used)
+    else:
+        count[rng.choice(nb, n_used, replace=False)] = rng.integers(1, 129, n_used)
+    meta = torch.from_numpy(np.stack([rng.integers(0, 9, nb), count], 1).astype(np.int32))
+    r = tsc.run_ranges(meta, grid)
+    assert r.dtype == torch.int32 and tuple(r.shape) == (grid, 4)
+    w0, w1, t0, t1 = r.numpy().T
+    blocks = np.concatenate([np.arange(a, b) for a, b in zip(w0, w1)]
+                            + [np.arange(a, b) for a, b in zip(t0, t1)])
+    np.testing.assert_array_equal(np.sort(blocks), np.arange(nb))
+    assert (w1 - w0).max() - (w1 - w0).min() <= 1
+    assert (t1 - t0).max() - (t1 - t0).min() <= 1
+    assert w0[0] == 0 and w1[-1] == n_used == t0[0] and t1[-1] == nb
+    if layout == "prefix":
+        for a, b, c, e in r.numpy():
+            assert (count[a:b] > 0).all() and (count[c:e] == 0).all()
+
+
+def test_scatter_items_never_falls_back():
+    """Off the CPU the wrapper launches its kernel or raises: tensors on a
+    device with no kernel raise, and run no twin."""
+    nb, L = 3, 2
+    meta = torch.zeros((nb, 2), dtype=torch.int32, device="meta")
+    fields = torch.zeros((tsc.FIELDS, nb * tsc.BLOCK_R), device="meta")
+    packed = torch.zeros((L * tsc.CLUSTER, 16), device="meta")
+    before = tsc.launches
+    with pytest.raises(NotImplementedError, match="no kernel for device meta"):
+        tsc.scatter_items(meta, fields, packed)
+    assert tsc.launches == before
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -317,3 +359,66 @@ def test_kernel_matches_twin_on_card(city, cuda_device):
     before = tsc.launches
     tapi.trace_rays(tb, o, d, max_distance=maxd, method="scatter")
     assert tsc.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_kernel_runs_and_bad_clusters_on_card(city, cuda_device):
+    """The redesigned kernel's own cases, bit for bit against the twin, on a
+    block map built from a real plan's blocks: one cluster's run much
+    longer than a persistent block's share, cluster changes inside the
+    blocks' ranges, ragged counts, empty blocks among the used ones and an
+    all-empty tail. Then blocks with items and a cluster id outside
+    [0, L) get misses and raise ``cluster_errors()`` by their number (an
+    empty block's id is not read), and every other block still equals the
+    twin."""
+    arrays, _, tb_cpu = city
+    from hikari_tpu_torch.utils import map_tensors
+
+    dev = cuda_device
+    tb = map_tensors(lambda x: x.to(dev), tb_cpu)
+    o, d, kw = _rays(arrays, "maxd_excl", n=65536, seed=43)
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    maxd = torch.from_numpy(kw["max_distance"]).to(dev)
+    excl = torch.from_numpy(kw["exclude_instance"]).to(dev)
+    lo = torch.zeros(65536, dtype=torch.int32, device=dev)
+    hi = torch.full((65536,), len(arrays.tri_world), dtype=torch.int32, device=dev)
+    packed, cmin, cmax, cvalid = tw.pack_clusters(tb, tsc.CLUSTER)
+    L = cmin.shape[0]
+    meta0, items0, _ = tsc.scatter_plan(cmin, cmax, cvalid, o, d, maxd, lo, hi)
+    fields0 = tsc.item_fields(items0, o, d, maxd, excl, lo, hi).reshape(tsc.FIELDS, -1, 128)
+    used = torch.nonzero(meta0[:, 1] > 0)[:, 0]
+    empty = torch.nonzero(meta0[:, 1] == 0)[:, 0]
+    busiest = used[int(torch.argmax(meta0[used, 1]))]
+    sel = torch.cat([used[:40], busiest.repeat(600), empty[:3], used[40:], empty[3:900]])
+    meta = meta0[sel].contiguous()
+    fields = fields0[:, sel].reshape(tsc.FIELDS, -1).contiguous()
+    nb = meta.shape[0]
+
+    tsc.build()
+    grid = min(tsc._lib.hikari_scatter_items_grid(), nb)
+    n_used = int((meta[:, 1] > 0).sum())
+    assert 600 > 4 * n_used / grid  # the long run spans several blocks' shares
+    ranges = tsc.run_ranges(meta, grid).cpu().numpy()
+    cid = meta[:, 0].cpu().numpy()
+    assert any(len(set(cid[a:b])) > 1 for a, b, _, _ in ranges)  # cluster changes in a range
+    assert set((meta[:, 1] % 64).tolist()) - {0}  # counts that do not fill the threads' rows
+
+    tsc.reset_cluster_errors()
+    got = tsc.scatter_items(meta, fields, packed)
+    want = tsc.scatter_items_reference(meta, fields, packed)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert tsc.cluster_errors() == 0
+
+    bad = meta.clone()
+    bad[5, 0], bad[45, 0], bad[n_used - 1, 0] = L, -1, L + 7
+    bad[n_used + 10, 0] = L + 1  # an empty block in the tail: not an error
+    assert (bad[[5, 45, n_used - 1], 1] > 0).all() and bad[n_used + 10, 1] == 0
+    got = tsc.scatter_items(bad, fields, packed)
+    assert tsc.cluster_errors() == 3
+    good = meta.clone()
+    good[[5, 45, n_used - 1], 1] = 0  # the twin's misses for those blocks
+    want = tsc.scatter_items_reference(good, fields, packed)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    tsc.reset_cluster_errors()

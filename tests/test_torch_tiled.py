@@ -34,6 +34,7 @@ from hikari_tpu.trace import tiled as jtiled
 from hikari_tpu_torch.io import scenes as tscenes
 from hikari_tpu_torch.scene.buffers import to_device as torch_to_device
 from hikari_tpu_torch.trace import api as tapi
+from hikari_tpu_torch.trace import intersect as tint
 from hikari_tpu_torch.trace import tile_walk as tw
 from hikari_tpu_torch.trace import tiled as ttiled
 from hikari_tpu_torch.utils import map_tensors
@@ -428,6 +429,47 @@ def test_walk_tie_rule_across_clusters(use_skip):
     _assert_hits_match(prim, t, u, v, jp, jt, ju, jv)
 
 
+def _tie_walk(prims, device="cpu"):
+    """The walk arguments of one tile of rays through a triangle duplicated
+    at ``prims`` of two clusters of 64 (every other row invalid, no skip)."""
+    cluster, L = 64, 2
+    rows = cluster * L
+    tri = np.array([[[-1.0, -1.0, 0.0], [1.0, -1.0, 0.0], [0.0, 1.0, 0.0]]], np.float32)
+    pre = tint.precompute_triangles(torch.from_numpy(np.repeat(tri, rows, axis=0)))
+    valid = torch.zeros(rows)
+    valid[list(prims)] = 1.0
+    packed = torch.cat([pre["n"], pre["eu"], pre["ev"], pre["cn"][:, None], pre["cu"][:, None],
+                        pre["cv"][:, None], valid[:, None], torch.zeros((rows, 3))], dim=1)
+    rng = np.random.default_rng(5)
+    n = 512
+    xy = rng.uniform(-0.3, 0.3, (n, 2)).astype(np.float32)
+    front = rng.uniform(size=n) < 0.5
+    o = np.concatenate([xy, np.where(front, -5.0, 4.0)[:, None]], 1).astype(np.float32)
+    d = np.zeros((n, 3), np.float32)
+    d[:, 2] = np.where(front, 1.0, -1.0)
+    rays = [torch.from_numpy(a) for a in (
+        o, d, np.full(n, 3.0e38, np.float32), np.zeros(n, np.float32), np.full(n, -1, np.int32),
+        np.zeros(n, np.int32), np.full(n, rows, np.int32))]
+    cmin = torch.from_numpy(np.repeat(tri[0].min(0)[None], L, 0))
+    cmax = torch.from_numpy(np.repeat(tri[0].max(0)[None], L, 0))
+    order, entry, maxent = tw.tile_entries(cmin, cmax, torch.ones(L, dtype=torch.bool), rays[0],
+                                           rays[1], rays[2], rays[5], rays[6], cluster)
+    walk = (packed, cmin, cmax, *rays, order, entry, maxent, cluster, False)
+    return tuple(x.to(device) if isinstance(x, torch.Tensor) else x for x in walk)
+
+
+@pytest.mark.parametrize("prims, want", [((1, 4, 72), 72), ((8, 16, 64), 8)])
+def test_walk_twin_tie_order(prims, want):
+    """The twin's sublane rule on one sublane: duplicates at prims 8 and 16
+    of cluster 0 and 64 of cluster 1 (all sublane 0) return the first found,
+    8; spread over sublanes 1, 4 and 0 (of cluster 1) the halving returns
+    72. The card's kernel splits each cluster's row groups between two
+    halves of its block (8 in one, 16 and 64 in the other), so these cases
+    hold its merge to the walk order."""
+    t, prim, u, v, tested = tw.tile_walk_reference(*_tie_walk(prims))
+    assert (prim == want).all() and tested.tolist() == [2]
+
+
 def test_auto_dispatch_matches_jax_pallas_tiled(city):
     """On CPU tensors ``trace_rays(method="auto")`` above 2048 triangles
     sorts, pads and walks with the twin, and equals the JAX package's
@@ -532,6 +574,16 @@ def test_plain_city_frame_matches(plain_city, frame):
     assert bool(torch.isinf(got.w2_sum).any())
 
 
+def test_tile_walk_never_falls_back():
+    """Off the CPU the wrapper launches its kernel or raises: tensors on a
+    device with no kernel raise, and run no twin."""
+    walk = _tie_walk((1, 4, 72), "meta")
+    before = tw.launches
+    with pytest.raises(NotImplementedError, match="no kernel for device meta"):
+        tw.tile_walk(*walk)
+    assert tw.launches == before
+
+
 # ---------------------------------------------------------------------------
 # 7. The kernel on the card
 # ---------------------------------------------------------------------------
@@ -563,3 +615,27 @@ def test_kernel_matches_twin_on_card(city, cuda_device):
         want = tw.tile_walk_reference(*walk)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_kernel_ragged_tile_and_part_ties_on_card(city, cuda_device):
+    """The redesigned kernel's own cases, each bit for bit against the twin:
+    rays whose last tile is ragged (padded with inert rays, as the trace API
+    pads) on tiles of unequal length, for each cluster/skip case, and ties
+    across the two parts of the block that split a cluster's rows."""
+    arrays, _, tb_cpu = city
+    tb = map_tensors(lambda x: x.to(cuda_device), tb_cpu)
+    args = [torch.from_numpy(a).to(cuda_device) for a in _padded(arrays, 65536 - 300, 43)]
+    for cluster, use_skip in WALK_CASES:
+        packed, cmin, cmax, cvalid = tw.pack_clusters(tb, cluster)
+        order, entry, maxent = tw.tile_entries(cmin, cmax, cvalid, args[0], args[1], args[2],
+                                               args[5], args[6], cluster)
+        walk = (packed, cmin, cmax, *args, order, entry, maxent, cluster, use_skip)
+        want = tw.tile_walk_reference(*walk)
+        assert int(want[4].min()) < int(want[4].max())  # tiles of unequal length
+        for a, b in zip(tw.tile_walk(*walk), want):
+            assert torch.equal(a, b), cluster
+    for prims in ((1, 4, 72), (8, 16, 64)):  # ties across the kernel's two halves
+        walk = _tie_walk(prims, cuda_device)
+        for a, b in zip(tw.tile_walk(*walk), tw.tile_walk_reference(*walk)):
+            assert torch.equal(a, b), prims
