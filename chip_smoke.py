@@ -28,7 +28,8 @@ Phases, each reported on its own line:
      the kernel, phase 1 with the sort, the whole ``trace_rays`` and the
      twin, beside the kernel's bound; the clusters tested per tile (max,
      p50, p90) and the longest tile's own bound; the kernel's SASS
-     instructions per pair (``cuobjdump``) and the issue floor they give.
+     instructions per pair on the pair loop's common path, where no ray of
+     the warp takes the pair (``cuobjdump``), and the issue floor they give.
      The scatter kernel against its twin on every item, (e) on the (c)
      rays, with its hits against the tile walk's, (f) on the (d) rays;
      CUDA-event times at (e) of the kernel, phases A+B, the segment-min, the
@@ -57,7 +58,16 @@ Phases, each reported on its own line:
 Every kernel case has a tie case: one triangle duplicated at prims 1, 4 and
 8 (for the tile walk, 1 and 4 of one cluster and the next cluster's row
 8), where the JAX kernels' per-sublane rule keeps the sublane-0 prim and
-the brute-force rule the lowest.
+the brute-force rule the lowest. The closest-hit kernel also meets (j)
+rays whose lanes mix prim ranges (the whole table, the emissive instance,
+empty, a part), NaN/+inf/0 max distances, exclusion of their own hit and
+invalid rows, and (k) the tie across its 256-row tiles (prims 1, 4 and
+2,056), each bitwise equal to the twin under both tie modes; its [time]
+line gives its SASS instructions a pair (common path), issue floors,
+registers and resident warps per SM. The gathers meet ON % 4 != 0, an unaligned idx,
+larger grids, reps 0 and each index mode; their [time] lines give the
+launch floor (an empty kernel of the same grid) and torch.gather at the
+single gathers.
 ``--profile`` adds a torch.profiler breakdown of two more frames of each
 main path. The second-to-last lines are the kernel table as JSON and the
 card's nvidia-smi name/power limit; the last line is the result JSON. Any
@@ -414,6 +424,11 @@ def profile_frames(name, scene, cam, state, settings, frames=2, top=12):
                 f"{e.device_time_total / 1e3:.3f} ms, cpu {e.cpu_time_total / 1e3:.3f} ms")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}")
+    ours = [e for e in kernels
+            if any(k in e.key for k in ("closest_hit", "tile_walk", "scatter_items"))]
+    log(f"[profile]   the trace kernels: " + (", ".join(
+        f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms in {e.count} launches" for e in ours)
+        or "none"))
 
 
 def duplicate_rows(rows, dup, device):
@@ -495,6 +510,88 @@ def tie_cases(device):
             f"{cluster}) -> prim {want} on all 512 rays, 2 clusters tested, kernel = twin")
 
 
+def k1_edge_cases(cornell, device):
+    """K1 against its twin, torch.equal on prim, t, u, v under both tie
+    modes: (j) rays in the cornell box whose lanes mix the whole table, the
+    emissive instance's prims, an empty range and a random part (per lane,
+    and per warp of 32), max distances of NaN, +inf, 0, F32_MAX and random,
+    the instance of their own closest hit excluded on a third of them, on
+    the table and on a copy with every fifth row invalid; 300,000 rays (a
+    ragged last block) and their first 65,536; (k) one triangle
+    duplicated at prims 1, 4 and 2,056 of a 2,064-row table, across the
+    kernel's 256-row tiles (and the TPU kernel's 2,048-row ones): prim 2,056
+    under "pallas" (sublane 0 wins), 1 under "bruteforce"."""
+    import numpy as np
+    import torch
+
+    from hikari_tpu_torch.trace import closest_hit as ch
+    from hikari_tpu_torch.utils import same_bits
+
+    rng = np.random.default_rng(17)
+    R, P = 300000, cornell.num_tris
+    packed = ch.pack_triangles(cornell)
+    invalid = packed.clone()
+    invalid[2::5, 12] = 0.0
+    em = int(cornell.em_instance[0])
+    em_lo = int(cornell.inst_prim_offset[em])
+    em_hi = em_lo + int(cornell.inst_prim_count[em])
+    o = rng.uniform(-0.9, 0.9, (R, 3)) + np.array([0.0, 1.0, 0.0])
+    d = rng.normal(size=(R, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    # Range kinds per lane for the first half, per warp of 32 for the rest.
+    kind = rng.integers(0, 4, R)
+    kind[R // 2:] = np.repeat(rng.integers(0, 4, -(-R // 64)), 32)[: R - R // 2]
+    part_lo = rng.integers(0, P, R)
+    part_hi = part_lo + rng.integers(0, P, R)
+    lo = np.select([kind == 0, kind == 1, kind == 2], [0, em_lo, 7], part_lo)
+    hi = np.select([kind == 0, kind == 1, kind == 2], [P, em_hi, 7], np.minimum(part_hi, P))
+    maxd = rng.uniform(0.1, 3.0, R)
+    pick = rng.integers(0, 5, R)
+    maxd = np.select([pick == 0, pick == 1, pick == 2, pick == 3], [np.nan, np.inf, 0.0, 3.0e38],
+                     maxd)
+
+    def dev(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x).astype(dtype)).to(device)
+
+    args = [dev(o, np.float32), dev(d, np.float32), dev(maxd, np.float32),
+            torch.full((R,), -1, dtype=torch.int32, device=device), dev(lo, np.int32),
+            dev(hi, np.int32)]
+    inst = packed[:, 13].contiguous().view(torch.int32)
+    first = ch.closest_hit_reference(*args, packed)[1]
+    own = torch.where(first >= 0, inst[first.clamp(min=0)], -1)
+    args[3] = torch.where(torch.from_numpy(rng.uniform(size=R) < 1 / 3).to(device), own,
+                          args[3]).to(torch.int32).contiguous()
+    for table_name, table in (("table", packed), ("every fifth row invalid", invalid)):
+        for n in (R, 65536):
+            for tie in ("pallas", "bruteforce"):
+                case = [x[:n] for x in args] + [table, tie]
+                got, want = ch.closest_hit(*case), ch.closest_hit_reference(*case)
+                if not all(same_bits(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"(j) K1 {table_name}, {n} rays, tie={tie!r}: kernel "
+                                         f"differs from its twin")
+                if n == R and tie == "pallas":
+                    hits, nans = int((got[1] >= 0).sum()), int(torch.isnan(got[0]).sum())
+        log(f"[kernel] (j) K1 mixed lanes ({table_name}): {R} and 65536 rays, both tie modes, "
+            f"kernel = twin bit for bit; {hits} hits and {nans} NaN t (NaN max distance) of "
+            f"{R}")
+    rows, dup, far = 2064, (1, 4, 2056), 2056
+    o, d, maxd, _, excl, lo, hi = tie_rays(1024, rows, device)
+    table = duplicate_rows(rows, dup, device)
+    for n in (1024, 300032):
+        big = [x.repeat((n // 1024,) + (1,) * (x.dim() - 1)) for x in (o, d, maxd, excl, lo, hi)]
+        for tie, want in (("pallas", far), ("bruteforce", 1)):
+            got = ch.closest_hit(*big, table, tie)
+            ref = ch.closest_hit_reference(*big, table, tie)
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                raise AssertionError(f"(k) K1 tile-spanning tie {tie}: kernel differs from its "
+                                     "twin")
+            if not bool((got[1] == want).all()):
+                raise AssertionError(f"(k) K1 tile-spanning tie {tie}: prims "
+                                     f"{got[1].unique().tolist()}, want {want}")
+    log(f"[kernel] (k) K1 tie across tiles: duplicates at prims {dup} of {rows} rows -> prim {far} "
+        f"('pallas'), 1 ('bruteforce') on 1,024 and 300,032 rays, kernel = twin")
+
+
 def prim_cases(device):
     """(g)-(i) and their [time] lines: T1-T3 against their twins on the
     card. Returns {kernel: (max_abs_err, ms, plain_ms, bound, bound_by,
@@ -504,6 +601,7 @@ def prim_cases(device):
     import torch.nn.functional as F
 
     from hikari_tpu_torch.tools import prims
+    from hikari_tpu_torch.utils import same_bits
 
     out = {}
     # (g) T1 at the TPU tool's shape.
@@ -553,7 +651,8 @@ def prim_cases(device):
     def compare_take(name, x, idx, axis, reps, mode=None):
         got = prims.take_along_sum(x, idx, axis, reps, mode)
         want = prims.take_along_sum_reference(x, idx, axis, reps, mode)
-        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True, msg=name)
+        if not same_bits(got, want):
+            raise AssertionError(f"{name}: kernel differs from its twin")
         fin = torch.isfinite(want)
         err = float((got[fin] - want[fin]).abs().max())
         return got, err, int((~fin).sum())
@@ -573,6 +672,28 @@ def prim_cases(device):
                 raise AssertionError(f"(h) axis {axis} mode {mode}: {nan} fill values")
     log(f"[kernel] (h) take_along (512, 512), axes 0 and 1, in range and modes None/clip/fill on "
         f"indices in [-1024, 1024): kernel = twin (NaN where the twin fills), max |err| {max(errs)}")
+    # Edge cases: ON % 4 != 0, an idx not 16-byte aligned, larger grids,
+    # reps 0, 1 and 3, indices in [-2n, 2n) in each mode.
+    n_edge = 0
+    for (m, n), (om, on), axis, shift in (
+            ((512, 128), (512, 130), 1, False), ((64, 130), (50, 130), 0, False),
+            ((8, 1024), (8, 1024), 0, True), ((2048, 2048), (2048, 2048), 1, False),
+            ((2048, 2048), (2048, 2048), 1, True), ((2048, 1030), (2048, 1030), 0, False)):
+        xe = grid(m, n)
+        size = (m, n)[axis]
+        idx = draw((om, on), -2 * size, 2 * size)
+        if shift:  # the same values at an address 4 bytes past a 16-byte boundary
+            shifted = torch.empty(om * on + 1, dtype=torch.int32, device=device)[1:].view(om, on)
+            idx = shifted.copy_(idx)
+        for reps in (0, 1, 3):
+            for mode in (None, "clip", "fill"):
+                compare_take(f"(h) edge {(om, on)} axis {axis} x{reps} {mode}", xe, idx, axis, reps,
+                             mode)
+                n_edge += 1
+    log(f"[kernel] (h) take_along edge cases: idx (512, 130) axis 1, (50, 130) axis 0, an "
+        f"unaligned (8, 1024) axis 0, (2048, 2048) axis 1 aligned and not, (2048, 1030) axis 0; "
+        f"reps 0, 1, 3; each mode on indices in [-2n, 2n): {n_edge} cases, "
+        f"kernel = twin bitwise (NaN where the twin fills)")
     idx0 = draw((512, 512), 0, 512)
     idx0_64 = idx0.long()
     calls = {"kernel": lambda: prims.take_along_sum(x, idx0, 0),
@@ -581,11 +702,13 @@ def prim_cases(device):
     dev_us = {k: device_ms(f, 200) * 1e3 for k, f in calls.items()}
     call_us = {k: cuda_time_ms(f, 200) * 1e3 for k, f in calls.items()}
     t2_bound, t2_by = bound_ms(2 * x.numel(), 3 * 4 * x.numel())
+    floor_us = device_ms(lambda: prims.take_along_empty(idx0.shape, device), 200) * 1e3
     log(f"[time] (h) take_along (512, 512) axis 0, device time per call (torch.profiler): "
         + ", ".join(f"{k} {v:.2f} us" for k, v in dev_us.items())
         + f"; per call in a host launch loop (CUDA events): "
         + ", ".join(f"{k} {v:.2f} us" for k, v in call_us.items())
-        + f"; bound {t2_bound * 1e3:.3f} us ({t2_by})")
+        + f"; bound {t2_bound * 1e3:.3f} us ({t2_by}); launch floor (an empty kernel of the same "
+        f"grid, device time) {floor_us:.2f} us")
     out["take_along_T2"] = (max(errs), dev_us["kernel"] / 1e3, dev_us["twin"] / 1e3, t2_bound, t2_by,
                             dev_us["torch.gather"] / 1e3)
 
@@ -604,10 +727,16 @@ def prim_cases(device):
         call = cuda_time_ms(lambda: prims.take_along_sum(x, idx, axis, reps), 200)
         plain = device_ms(lambda: prims.take_along_sum_reference(x, idx, axis, reps), 5)
         bound, by = bound_ms(2 * reps * idx.numel(), 3 * 4 * idx.numel())
+        library = ""
+        if reps == 1:  # a single gather: torch.gather computes the same function
+            idx_64 = idx.long()
+            gather_us = device_ms(lambda: torch.gather(x, axis, idx_64), 200) * 1e3
+            library = f"; torch.gather {gather_us:.2f} us device"
+        floor_us = device_ms(lambda: prims.take_along_empty(idx.shape, device), 200) * 1e3
         log(f"[kernel] (i) take_along {m}x{n} axis {axis} x{reps}: kernel = twin, sum {value:.6g} vs "
             f"closed form {want:.6g}; [time] device time per call: kernel {ms * 1e3:.2f} us, twin "
             f"{plain * 1e3:.2f} us; kernel per call in a host loop {call * 1e3:.2f} us; bound "
-            f"{bound * 1e3:.3f} us ({by})")
+            f"{bound * 1e3:.3f} us ({by}); launch floor {floor_us:.2f} us{library}")
         if t3 is None:
             t3 = (ms, plain, bound, by)
     out["take_along_T3"] = (max(errs), *t3, None)
@@ -763,6 +892,7 @@ def main():
                      ch.closest_hit(*prim_args, "bruteforce"),
                      ch.closest_hit_reference(*prim_args, "bruteforce"))
     tie_cases(dev)
+    k1_edge_cases(cornell, dev)
     torch.cuda.synchronize()
     ch_ms = cuda_time_ms(lambda: ch.closest_hit(*prim_args), 50)
     ch_bf_ms = cuda_time_ms(lambda: ch.closest_hit(*prim_args, "bruteforce"), 50)
@@ -775,10 +905,17 @@ def main():
     ch_bound, ch_by = bound_ms(R * P * PAIR_FLOPS, R * 56 + P * 64)
     Rs, Ps = soup[0].shape[0], soup[6].shape[0]
     soup_bound, soup_by = bound_ms(Rs * Ps * PAIR_FLOPS, Rs * 56 + Ps * 64)
+    ch_ipp = ab.per_pair(ab.kernel_sass(ch.SOURCE), "closest_hit_kernel")
+    ch_regs = "/".join(map(str, ab.registers(ch.SOURCE, "closest_hit_kernel").values()))
     log(f"[time] (a) {R} rays x {P} tris: kernel {ch_ms:.4f} ms (tie='bruteforce' "
         f"{ch_bf_ms:.4f} ms), twin {ch_plain_ms:.4f} ms, bound {ch_bound:.4f} ms ({ch_by}); "
         f"(b) {Rs} rays x {Ps} tris: kernel {soup_ms:.4f} ms, twin {soup_plain_ms:.4f} ms, "
         f"bound {soup_bound:.4f} ms ({soup_by})")
+    log(f"[time] K1 SASS {ch_ipp:.2f} instructions a pair on the loop's common path (no ray of "
+        f"the warp takes the pair), issue floor (a) "
+        f"{ab.issue_floor_ms(R * P, ch_ipp):.4f} ms, (b) {ab.issue_floor_ms(Rs * Ps, ch_ipp):.4f} "
+        f"ms; {ch_regs} registers; resident warps per SM (a) {ch.warps_per_sm(P)}, (b) "
+        f"{ch.warps_per_sm(Ps)}")
 
     # ---- 3b. cornell_path ----
     cornell_state, cornell_launches = run_main_path("cornell_path", cornell, cam, cornell_settings, dev)
@@ -846,7 +983,8 @@ def main():
     log(f"[time] (c) clusters tested per tile: max {t_max}, p50 {t_p50:g}, p90 {t_p90:g}; the "
         f"longest tile alone on one SM at 1/{ab.NUM_SMS} of the FP32 rate: "
         f"{longest * PAIR_FLOPS / (PEAK_FP32 / ab.NUM_SMS) * 1e3:.4f} ms; K2 SASS "
-        f"{tw_ipp:.2f} instructions a pair, issue floor {ab.issue_floor_ms(pairs, tw_ipp):.4f} ms")
+        f"{tw_ipp:.2f} instructions a pair (common path), issue floor "
+        f"{ab.issue_floor_ms(pairs, tw_ipp):.4f} ms")
 
     # ---- 4b. scatter kernel vs twin on the city shapes ----
     del walk_c, walk_d, got_c, phase1_c  # keep the kernel cases out of the later peaks
@@ -904,7 +1042,7 @@ def main():
         f"{sc_ms:.4f} ms, bound {sc_bound:.4f} ms ({sc_by}); phases A+B with the item fields "
         f"{plan_ms:.4f} ms; segment-min {segmin_ms:.4f} ms; whole trace_rays(method='scatter') "
         f"{sc_trace_ms:.4f} ms; twin {sc_plain_ms:.4f} ms; K3 SASS {sc_ipp:.2f} instructions a "
-        f"pair, issue floor {ab.issue_floor_ms(sc_pairs, sc_ipp):.4f} ms")
+        f"pair (common path), issue floor {ab.issue_floor_ms(sc_pairs, sc_ipp):.4f} ms")
     check_cluster_errors("(e) timing")
     del plan_e, fields_e, got_e, hit_e, hit_c, meta_e, items_e, f_rays
 

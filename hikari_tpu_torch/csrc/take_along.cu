@@ -17,9 +17,20 @@
 // What bounds it: at the probes' shapes ((512, 512); (512, 128) and
 // (8, 1024) with up to 128 repeats) the bytes (x, idx and out, each once:
 // 0.8-3 MB, ~0.2-0.9 us at 3.35 TB/s) and the adds (2 per repeat) take less
-// than a kernel launch does, so the time is the launch. The design is the
-// plainest one: the gathered value is loaded once and the repeats add in
-// registers, in the twin's order (no FMA: the adds are __fadd_rn).
+// than a kernel launch does, so the floor is the launch: an empty kernel of
+// the same grid (hikari_take_along_empty) measures it. Above it lie each
+// output's dependent chain (the idx load, the gather, `reps` dependent
+// adds, the store) and, gathering across rows, a 32-byte sector read for
+// every 4-byte value. The design is the plainest one: one output per
+// thread, so every SM has warps; the gathered value is loaded once and the
+// repeats add in registers, in the twin's order (acc = acc + (x + r),
+// round-to-nearest __fadd_rn, no FMA), so the result is bitwise the twin's.
+// Measured slower on the H100 and not kept (PERF.md): 4 outputs a thread
+// with 16-byte idx loads and stores and 4 independent add chains (fewer
+// blocks: SMs idle at these sizes, and 4 chains through one warp's issue);
+// one output a thread in a one-wave grid-stride grid; the same kernel
+// templated on the axis and the index mode; and x's columns staged in
+// shared memory for an axis-0 gather (one sector a row, 64 blocks).
 
 #include <cuda_runtime.h>
 
@@ -51,6 +62,10 @@ __global__ void __launch_bounds__(kThreads)
   out[e] = acc;
 }
 
+__global__ void __launch_bounds__(kThreads) empty_kernel() {}
+
+int blocks_for(int total) { return (total + kThreads - 1) / kThreads; }
+
 }  // namespace
 
 // x (M, N) f32, idx (OM, ON) i32, out (OM, ON) f32, all contiguous; axis 0
@@ -59,9 +74,17 @@ extern "C" int hikari_take_along(const float* x, const int* idx, int M, int N, i
                                  int axis, int reps, int clip, float* out, void* stream) {
   const int total = OM * ON;
   if (total <= 0) return static_cast<int>(cudaSuccess);
-  take_along_kernel<<<(total + kThreads - 1) / kThreads, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(x, idx, M, N, OM, ON, axis, reps,
-                                                           clip, out);
+  take_along_kernel<<<blocks_for(total), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, idx, M, N, OM, ON, axis, reps, clip, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An empty kernel with the grid and block of hikari_take_along for OM x ON
+// outputs: its device time is the launch floor of the gathers.
+extern "C" int hikari_take_along_empty(int OM, int ON, void* stream) {
+  const int total = OM * ON;
+  if (total <= 0) return static_cast<int>(cudaSuccess);
+  empty_kernel<<<blocks_for(total), kThreads, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -58,6 +58,8 @@ def build(name: str) -> float:
         fn.argtypes = [ptr, ptr] + [i32] * 5 + [ptr, ptr]
     else:
         fn.argtypes = [ptr, ptr] + [i32] * 7 + [ptr, ptr]
+        lib.hikari_take_along_empty.argtypes = [i32, i32, ptr]
+        lib.hikari_take_along_empty.restype = i32
     fn.restype = i32
     err = getattr(lib, f"hikari_{name}_error_string")
     err.argtypes = [i32]
@@ -66,12 +68,13 @@ def build(name: str) -> float:
     return time.perf_counter() - start
 
 
-def _launch(name: str, *args) -> None:
+def _launch(name: str, *args, entry: str | None = None) -> None:
+    """Call the library's ``hikari_{entry or name}`` and raise on an error."""
     lib = _libs[name]
-    err = getattr(lib, f"hikari_{name}")(*args)
+    err = getattr(lib, f"hikari_{entry or name}")(*args)
     if err:
         msg = getattr(lib, f"hikari_{name}_error_string")(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg}")
+        raise RuntimeError(f"{entry or name} kernel launch failed: {msg}")
 
 
 def _check_dxs(dxs) -> list[int]:
@@ -192,3 +195,13 @@ def take_along_sum(x, idx, axis: int, reps: int = 1, mode=None):
                 int(mode == "clip"), out.data_ptr(), stream)
     take_along_launches += 1
     return out
+
+
+def take_along_empty(shape, device) -> None:
+    """Launch an empty kernel with the grid and block that ``take_along_sum``
+    takes for an output of ``shape`` on the card: its device time is the
+    gathers' launch floor. Not counted as a gather launch."""
+    build("take_along")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _launch("take_along", *map(int, shape), stream, entry="take_along_empty")

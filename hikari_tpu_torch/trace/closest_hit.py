@@ -6,12 +6,15 @@ K1b ``_kernel_streamed``). ``closest_hit`` launches the kernel for CUDA
 tensors and runs the twin ``closest_hit_reference`` only for CPU tensors;
 on a CUDA tensor it launches or raises, it never falls back.
 
-Tie rule (kernel and twin), the JAX kernel's: eight running bests per
-ray, triangle ``p`` to best ``p mod 8`` (K1's sublanes), each replaced
-only on a strict ``<``; then ``tie="pallas"`` halves them 8 -> 4 -> 2 -> 1
-as ``pallas_kernel.py _reduce_sublanes`` does (among equal t the sublanes
-win in the order 0, 4, 2, 6, 1, 5, 3, 7), and ``tie="bruteforce"`` takes
-the least t, then the lowest prim (the JAX ``_trace_bruteforce`` rule).
+Tie rule, the JAX kernel's. The twin keeps its structure: eight running
+bests per ray, triangle ``p`` to best ``p mod 8`` (K1's sublanes), each
+replaced only on a strict ``<``; then ``tie="pallas"`` halves them 8 -> 4
+-> 2 -> 1 as ``pallas_kernel.py _reduce_sublanes`` does (among equal t the
+sublanes win in the order 0, 4, 2, 6, 1, 5, 3, 7), and
+``tie="bruteforce"`` takes the least t, then the lowest prim (the JAX
+``_trace_bruteforce`` rule). The kernel keeps one best per ray with the
+same winner: the least key (t, rank(p mod 8), p), rank the 3-bit reversal
+of the sublane, or (t, p) under "bruteforce" (``csrc/closest_hit.cu``).
 
 The kernel is built at first use from the repo's source with ``nvcc``
 into ``hikari_tpu_torch/_build/`` and bound through ctypes
@@ -182,10 +185,22 @@ def build() -> float:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.hikari_closest_hit.argtypes = [ptr] * 7 + [i32] * 3 + [ptr] * 5
     lib.hikari_closest_hit.restype = i32
+    lib.hikari_closest_hit_warps_per_sm.argtypes = [i32]
+    lib.hikari_closest_hit_warps_per_sm.restype = i32
     lib.hikari_cuda_error_string.argtypes = [i32]
     lib.hikari_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib
     return time.perf_counter() - start
+
+
+def warps_per_sm(num_tris: int) -> int:
+    """Resident warps per SM of the kernel's launch for this many triangles
+    on the current card (the CUDA occupancy query)."""
+    build()
+    n = _lib.hikari_closest_hit_warps_per_sm(num_tris)
+    if n < 0:
+        raise RuntimeError("closest_hit: the card's occupancy query failed")
+    return n
 
 
 def closest_hit(o, d, maxd, excl, lo, hi, packed, tie: str = "pallas"):

@@ -199,3 +199,16 @@ def map_tensors(fn, obj):
     if isinstance(obj, (list, tuple)):
         return type(obj)(map_tensors(fn, v) for v in obj)
     return obj
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit, shape and dtype included; a NaN matches any NaN
+    (a NaN max distance gives a NaN t on a miss, a fill gives NaN), and
+    0.0 and -0.0 differ. How a kernel is held against its plain twin."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.dtype.is_floating_point:
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan].view(torch.int32),
+                                                            b[~nan].view(torch.int32))

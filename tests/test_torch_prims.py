@@ -22,6 +22,7 @@ from jax.experimental.pallas import tpu as pltpu
 from hikari_tpu.render.filters import pack_rows as jax_pack_rows
 from hikari_tpu_torch.render.filters import pack_rows
 from hikari_tpu_torch.tools import prims
+from hikari_tpu_torch.utils import same_bits
 
 torch.set_num_threads(2)
 
@@ -199,7 +200,10 @@ def cuda_device():
 def test_kernels_match_twins_on_card(cuda_device):
     """On the card each kernel equals its twin bitwise: the pack at 8
     planes of 96 x 300 (a ragged last column run), the gathers at the
-    tool's shapes and in each mode."""
+    tool's shapes and in each mode, and at ON % 4 != 0, with an idx 4
+    bytes past a 16-byte boundary, at (2048, 2048) and (2048, 1030), at
+    reps 0, 1 and 3, on indices in [-2n, 2n) in each mode (NaN where the
+    twin fills)."""
     planes = torch.randn((8, 96, 300), generator=torch.Generator().manual_seed(1)).to(cuda_device)
     before = prims.window_pack_launches
     got = prims.window_pack(planes, DXS)
@@ -213,3 +217,23 @@ def test_kernels_match_twins_on_card(cuda_device):
         got = prims.take_along_sum(x, idx, axis, reps, mode)
         want = prims.take_along_sum_reference(x, idx, axis, reps, mode)
         torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    for xshape, ishape, axis, shift in (
+            ((512, 128), (512, 130), 1, False), ((64, 130), (50, 130), 0, False),
+            ((8, 1024), (8, 1024), 0, True), ((2048, 2048), (2048, 2048), 1, False),
+            ((2048, 2048), (2048, 2048), 1, True), ((2048, 1030), (2048, 1030), 0, False)):
+        n = xshape[axis]
+        x = torch.from_numpy(_gather_case(xshape, axis, seed=4)[0]).to(cuda_device)
+        rng = np.random.default_rng(8)
+        idx = torch.from_numpy(rng.integers(-2 * n, 2 * n, ishape).astype(np.int32)).to(cuda_device)
+        if shift:
+            flat = torch.empty(idx.numel() + 1, dtype=torch.int32, device=cuda_device)
+            idx = flat[1:].view(ishape).copy_(idx)
+            assert idx.data_ptr() % 16 == 4
+        for reps in (0, 1, 3):
+            for mode in prims.TAKE_MODES:
+                before = prims.take_along_launches
+                got = prims.take_along_sum(x, idx, axis, reps, mode)
+                assert prims.take_along_launches == before + 1
+                want = prims.take_along_sum_reference(x, idx, axis, reps, mode)
+                assert same_bits(got, want)
+                assert bool(torch.isnan(want).any()) == (mode != "clip" and reps > 0)

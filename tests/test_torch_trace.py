@@ -22,7 +22,7 @@ from hikari_tpu_torch.config import F32_MAX
 from hikari_tpu_torch.scene.buffers import to_device as torch_to_device
 from hikari_tpu_torch.trace import api as tapi
 from hikari_tpu_torch.trace import closest_hit as ch
-from hikari_tpu_torch.utils import map_tensors
+from hikari_tpu_torch.utils import map_tensors, same_bits
 
 torch.set_num_threads(2)
 
@@ -113,23 +113,31 @@ def test_miss_value(cornell):
     np.testing.assert_array_equal(h.t.numpy(), 1.0)
 
 
-def _duplicate_table(rows: int = 16):
-    """One triangle duplicated at prims 1, 4 and 8 of a ``rows``-triangle
+def _duplicate_table(rows: int = 16, dup=(1, 4, 8)):
+    """One triangle duplicated at the prims ``dup`` of a ``rows``-triangle
     table (the others invalid), packed for both packages: the JAX
     kernel's f32 rows and the port's rows (instance id as int32 bits)."""
     from hikari_tpu.trace.intersect import precompute_triangles as jax_precompute
 
+    dup = list(dup)
     tri = np.array([[[-1.0, -1.0, 0.0], [1.0, -1.0, 0.0], [0.0, 1.0, 0.0]]], np.float32)
     tris = np.repeat(tri + np.array([0.0, 0.0, 50.0], np.float32), rows, axis=0)
-    tris[[1, 4, 8]] = tri
+    tris[dup] = tri
     valid = np.zeros(rows, np.float32)
-    valid[[1, 4, 8]] = 1.0
+    valid[dup] = 1.0
     pre = jax_precompute(jnp.asarray(tris))
     cols = [np.asarray(pre[k]).reshape(rows, -1) for k in ("n", "eu", "ev", "cn", "cu", "cv")]
     jrows = np.concatenate(cols + [valid[:, None], np.zeros((rows, 3), np.float32)], axis=1)
     trows = jrows.copy()
     trows[:, 13] = np.zeros(rows, np.int32).view(np.float32)
     return jrows, trows
+
+
+def _tie_rays(R):
+    """R rays straight through the duplicated triangle, half from each side."""
+    o = np.tile(np.array([[0.1, -0.2, -5.0], [-0.3, 0.1, 4.0]], np.float32), (R // 2, 1))
+    d = np.tile(np.array([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0]], np.float32), (R // 2, 1))
+    return o, d
 
 
 @pytest.mark.parametrize("method", ["bruteforce", "pallas"])
@@ -176,8 +184,7 @@ def test_tie_rule_lowest_prim(method):
 
     jrows, trows = _duplicate_table()
     R = 1024  # the resident JAX kernel takes whole 8 x 128-ray grid steps
-    o = np.tile(np.array([[0.1, -0.2, -5.0], [-0.3, 0.1, 4.0]], np.float32), (R // 2, 1))
-    d = np.tile(np.array([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0]], np.float32), (R // 2, 1))
+    o, d = _tie_rays(R)
     maxd = np.full(R, 3.0e38, np.float32)
     excl = np.full(R, -1, np.int32)
     lo, hi = np.zeros(R, np.int32), np.full(R, 16, np.int32)
@@ -192,6 +199,37 @@ def test_tie_rule_lowest_prim(method):
                                     interpret=True)
         np.testing.assert_array_equal(np.asarray(jp), p.numpy())
         np.testing.assert_allclose(t.numpy(), np.asarray(jt), rtol=1e-6)
+
+
+def test_tie_across_tiles_matches_streamed_jax_kernel():
+    """One triangle duplicated at prims 1, 4 and 2,056 of a 2,064-row table:
+    above the JAX kernel's 2,048-row tile, so it runs its streamed K1b path
+    (the table padded to two tiles, the eight sublane bests carried across
+    them) and across the CUDA kernel's 256-row tiles. The twin equals the
+    JAX kernel in interpret mode: prim 2,056 (sublane 0 wins the halving)
+    under "pallas", and keeps the lowest prim, 1, under "bruteforce"."""
+    from hikari_tpu.trace.pallas_kernel import TRI_TILE, trace_pallas
+
+    rows, far = 2064, 2056
+    jrows, trows = _duplicate_table(rows, (1, 4, far))
+    jrows = np.concatenate([jrows, np.zeros((2 * TRI_TILE - rows, 16), np.float32)])
+    R = 256  # two 128-ray blocks of the streamed grid
+    o, d = _tie_rays(R)
+    maxd = np.full(R, 3.0e38, np.float32)
+    excl = np.full(R, -1, np.int32)
+    lo, hi = np.zeros(R, np.int32), np.full(R, rows, np.int32)
+    args = [torch.from_numpy(x) for x in (o, d, maxd, excl, lo, hi)] + [torch.from_numpy(trows)]
+    jt, jp, ju, jv = trace_pallas(jnp.asarray(jrows), *(jnp.asarray(x) for x in (o, d, maxd, excl,
+                                                                                lo, hi)),
+                                  interpret=True)
+    t, p, u, v = ch.closest_hit_reference(*args, tie="pallas")
+    np.testing.assert_array_equal(np.asarray(jp), far)
+    np.testing.assert_array_equal(p.numpy(), np.asarray(jp))
+    np.testing.assert_allclose(t.numpy(), np.asarray(jt), rtol=1e-6)
+    np.testing.assert_allclose(u.numpy(), np.asarray(ju), atol=1e-5)
+    np.testing.assert_allclose(v.numpy(), np.asarray(jv), atol=1e-5)
+    _, p_bf, _, _ = ch.closest_hit_reference(*args, tie="bruteforce")
+    np.testing.assert_array_equal(p_bf.numpy(), 1)
 
 
 @pytest.fixture(scope="module")
@@ -294,11 +332,28 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def _assert_kernel_is_twin(args, tie="pallas"):
+    before = ch.launches
+    got = ch.closest_hit(*args, tie=tie)
+    assert ch.launches == before + 1
+    want = ch.closest_hit_reference(*args, tie=tie)
+    for a, b in zip(got, want):
+        assert same_bits(a, b)
+    return got
+
+
 @pytest.mark.cuda
 def test_kernel_matches_twin_on_card(cornell, soup, cuda_device):
     """On the card the kernel equals its twin bit for bit on prim, t, u, v
-    (no FMA contraction, same operation order), for the resident-size
-    cornell table and for the multi-tile soup."""
+    (no FMA contraction, same operation order), under both tie modes: for
+    the resident-size cornell table and for the multi-tile soup; for rays
+    whose lanes mix prim ranges (the whole table, the emissive instance's
+    prims, empty, a random part: per lane and per warp of 32), with max
+    distances of NaN, +inf and 0, the instance of their own hit excluded,
+    on the table and with every fifth row invalid, at 300,000 rays (a
+    ragged last block) and 65,536; and for the duplicated
+    triangle at prims 1, 4 and 2,056, across the kernel's 256-row tiles."""
+    dev = cuda_device
     for _, tb_cpu in (cornell, soup):
         arrays_dev = map_tensors(lambda x: x.to(cuda_device), tb_cpu)
         o, d = _rays(65536, 9)
@@ -312,9 +367,49 @@ def test_kernel_matches_twin_on_card(cornell, soup, cuda_device):
             torch.full((R,), arrays_dev.num_tris, dtype=torch.int32, device=cuda_device),
             ch.pack_triangles(arrays_dev),
         )
-        before = ch.launches
-        got = ch.closest_hit(*args)
-        assert ch.launches == before + 1
-        want = ch.closest_hit_reference(*args)
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
+        for tie in ch.TIE_RULES:
+            _assert_kernel_is_twin(args, tie)
+
+    tb = map_tensors(lambda x: x.to(dev), cornell[1])
+    packed = ch.pack_triangles(tb)
+    P, R = tb.num_tris, 300000
+    em = int(tb.em_instance[0])
+    em_lo = int(tb.inst_prim_offset[em])
+    em_hi = em_lo + int(tb.inst_prim_count[em])
+    rng = np.random.default_rng(12)
+    o, d = _rays(R, 13, -0.9, 0.9)
+    o[:, 1] += 1.0
+    kind = rng.integers(0, 4, R)
+    kind[R // 2:] = np.repeat(rng.integers(0, 4, -(-R // 64)), 32)[: R - R // 2]
+    part_lo = rng.integers(0, P, R)
+    part_hi = np.minimum(part_lo + rng.integers(0, P, R), P)
+    lo = np.select([kind == 0, kind == 1, kind == 2], [0, em_lo, 5], part_lo)
+    hi = np.select([kind == 0, kind == 1, kind == 2], [P, em_hi, 5], part_hi)
+    pick = rng.integers(0, 5, R)
+    maxd = np.select([pick == 0, pick == 1, pick == 2, pick == 3], [np.nan, np.inf, 0.0, 3.0e38],
+                     rng.uniform(0.1, 3.0, R))
+    args = [torch.from_numpy(x.astype(dt)).to(dev) for x, dt in (
+        (o, np.float32), (d, np.float32), (maxd, np.float32), (np.full(R, -1), np.int32),
+        (lo, np.int32), (hi, np.int32))]
+    first = ch.closest_hit_reference(*args, packed)[1]
+    own = torch.where(first >= 0, tb.tri_inst[first.clamp(min=0)].to(torch.int32), -1)
+    third = torch.from_numpy(rng.uniform(size=R) < 1 / 3).to(dev)
+    args[3] = torch.where(third, own, args[3]).to(torch.int32).contiguous()
+    invalid = packed.clone()
+    invalid[2::5, 12] = 0.0
+    for table in (packed, invalid):
+        for n in (R, 65536):
+            for tie in ch.TIE_RULES:
+                got = _assert_kernel_is_twin([x[:n] for x in args] + [table], tie)
+    assert bool(torch.isnan(got[0]).any()) and bool((got[1] >= 0).any())
+
+    rows, far = 2064, 2056
+    _, trows = _duplicate_table(rows, (1, 4, far))
+    for n in (1024, 300032):
+        o, d = _tie_rays(n)
+        args = [torch.from_numpy(x).to(dev) for x in (
+            o, d, np.full(n, 3.0e38, np.float32), np.full(n, -1, np.int32),
+            np.zeros(n, np.int32), np.full(n, rows, np.int32), trows)]
+        for tie, want in (("pallas", far), ("bruteforce", 1)):
+            got = _assert_kernel_is_twin(args, tie)
+            assert bool((got[1] == want).all())
