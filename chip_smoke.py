@@ -55,6 +55,23 @@ Phases, each reported on its own line:
      ``examples/dissect`` for cornell (256), into a temporary directory:
      ms/frame, peak memory, non-finite pixels (must be 0), mean luminance
      (must be > 0), trace calls = closest-hit launches.
+  7. fwd+grad. [grad]: 8 frames of ``cornell_bench`` fwd+grad (the bench
+     frame, 1920x1080 from 960x540) through ``parallel.make_train_step``
+     against a zero target: ms/frame, peak memory, per leaf of
+     ``DIFF_LEAVES`` whether its gradient is finite (every frame), its L2
+     norm and whether it is nonzero (every leaf but ``sun_color`` must be),
+     trace calls = closest-hit launches in the forward, and 0 closest-hit
+     launches in the backward. [grad check]: the train step on the card
+     against the CPU twins at frames 2 and 3 from one state, cornell at
+     63x48 (temporal reuse only, f32 reservoirs) and at 62x48 with the
+     bench settings: the loss and each leaf's relative L2 error within the
+     stated bounds (``GRAD_LOSS_RTOL``, ``GRAD_LEAF_REL``). [bench]:
+     ``hikari_tpu_torch.bench`` for cornell with its scene and city
+     extras, its JSON line echoed prefixed; every extra must run, the
+     city's traces through the tile walk, and cornell's accumulator must
+     be finite; an extra whose accumulator is not finite is named on a
+     line of its own. [train]: ``examples/train`` for 10 steps at 48 px;
+     its loss must fall. Each phase prints its seconds.
 Every kernel case has a tie case: one triangle duplicated at prims 1, 4 and
 8 (for the tile walk, 1 and 4 of one cluster and the next cluster's row
 8), where the JAX kernels' per-sublane rule keeps the sublane-0 prim and
@@ -69,7 +86,9 @@ larger grids, reps 0 and each index mode; their [time] lines give the
 launch floor (an empty kernel of the same grid) and torch.gather at the
 single gathers.
 ``--profile`` adds a torch.profiler breakdown of two more frames of each
-main path. The second-to-last lines are the kernel table as JSON and the
+main path, and of two fwd+grad frames of ``cornell_bench`` (device time of
+the forward against the backward's autograd nodes). The second-to-last
+lines are the kernel table as JSON and the
 card's nvidia-smi name/power limit; the last line is the result JSON. Any
 failed phase raises, so the exit code is non-zero and no result line is
 printed.
@@ -103,6 +122,18 @@ GATHER_CASES = (((512, 128), 1, 32), ((512, 128), 1, 128), ((512, 128), 1, 1), (
 RENDER_CASES = (("cornell", 128, 24), ("cornell", 256, 16), ("minimal", 256, 16),
                 ("simple", 256, 16), ("scene", 256, 16))
 DISSECT_CASE = ("cornell", 256, 16)
+# [grad check]: the train step on the card against the CPU twins at frames
+# 2 and 3. The kernels are bitwise to their twins, but CUDA's ATen
+# reductions, transcendental functions and atomic scatter-adds in the
+# backward round otherwise than the CPU's. Two H100 runs measured every
+# leaf within 1.03e-6 relative L2 and the loss within 1.04e-7 in both
+# settings (PERF.md); the bounds leave ten times that.
+GRAD_LOSS_RTOL, GRAD_LEAF_REL = 1e-6, 1e-5
+GRAD_CHECKS = (
+    ("cornell temporal only, f32 reservoirs",
+     lambda s: grad_small_settings(s, 63, 48, bench=False)),
+    ("cornell bench settings", lambda s: grad_small_settings(s, 62, 48, bench=True)),
+)
 
 
 def log(msg):
@@ -131,6 +162,22 @@ def bench_settings(settings, width, height, tracer):
     return settings.replace(
         width=width, height=height, upscale=Upscale.smaa_tu4x(2.0), taa=Taa.JASMINE, denoise=True,
         indirect_bounces=1, reproject="shift", remat=False, collect_stats=True, tracer=tracer,
+    )
+
+
+def grad_small_settings(settings, width, height, bench):
+    """[grad check]'s settings: the bench frame's (``bench=True``) or
+    cornell with temporal reuse only and f32 reservoirs, no upscale or TAA
+    (``tests/test_torch_grad_cornell.py``)."""
+    from hikari_tpu_torch.config import Taa, Upscale
+
+    if bench:
+        return bench_settings(settings, width, height, "auto")
+    return settings.replace(
+        width=width, height=height, upscale=Upscale.none(), taa=Taa.NONE, denoise=True,
+        indirect_bounces=1, indirect_spatial_reuse=False, emissive_spatial_reuse=False,
+        emissive_lit=True, reservoir_f16=False, reproject="shift", remat=False, tracer="bruteforce",
+        clear_color=(0.0, 0.0, 0.0, 1.0),
     )
 
 
@@ -316,7 +363,7 @@ def run_main_path(name, scene, cam, settings, device):
     state = initial_state(settings, device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    ch.launches = ch.streamed_launches = tw.launches = sc.launches = api.trace_calls = 0
+    reset_counts()
     frame_ms, dropped = [], []
     with torch.no_grad():
         for _ in range(FRAMES):
@@ -392,21 +439,21 @@ def check_small(name, scene_gpu, scene_cpu, cam, settings, device):
                 f"twin, {share:.4f} of pixels within 1e-3, max |diff| {float(diff.max()):.3g}")
 
 
-def profile_frames(name, scene, cam, state, settings, frames=2, top=12):
-    """``--profile``: trace ``frames`` more frames with torch.profiler;
-    print the device busy share (kernel time over wall time), the device
-    time under the tile walk's and the scatter tracer's ranges and the
-    kernels with the most device time."""
+def profile_frames(name, advance, state, frames=2, top=12):
+    """``--profile``: trace ``frames`` more frames, ``state = advance(state)``
+    each, with torch.profiler; print the device busy share (kernel time over
+    wall time), the device time under the tile walk's and the scatter
+    tracer's ranges, the kernels with the most device time and the device
+    time of the autograd backward (the kernels under the autograd engine's
+    ``evaluate_function`` events; 0 for a forward-only path)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from hikari_tpu_torch.render.pipeline import render_frame
-
     torch.cuda.synchronize()
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(frames):
-            _, state = render_frame(scene, cam, state, settings)
+            state = advance(state)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
@@ -416,19 +463,41 @@ def profile_frames(name, scene, cam, state, settings, frames=2, top=12):
     kernels = [e for e in events if e.device_type.name == "CUDA" and e.key not in ranges]
     busy_us = sum(e.self_device_time_total for e in kernels)
     n_launch = sum(e.count for e in kernels)
+    bwd = [e for e in events if e.device_type.name == "CPU"
+           and e.key.startswith("autograd::engine::evaluate_function")]
+    bwd_us = sum(e.device_time_total for e in bwd)
     log(f"[profile] {name}, {frames} frames: wall {wall_us / 1e3:.2f} ms, device busy "
-        f"{busy_us / 1e3:.2f} ms ({busy_us / wall_us:.3f} of wall), {n_launch} kernel launches")
+        f"{busy_us / 1e3:.2f} ms ({busy_us / wall_us:.3f} of wall), {n_launch} kernel launches; "
+        f"device time forward {(busy_us - bwd_us) / 1e3:.2f} ms, backward {bwd_us / 1e3:.2f} ms "
+        f"({sum(e.count for e in bwd)} autograd nodes)")
     for e in events:
         if e.key in ranges:
             log(f"[profile]   range {e.key} ({e.device_type.name}): {e.count}x, device "
                 f"{e.device_time_total / 1e3:.3f} ms, cpu {e.cpu_time_total / 1e3:.3f} ms")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}")
+    if bwd:
+        log("[profile]   backward nodes by device time: " + ", ".join(
+            f"{e.key.split(':')[-1].strip()} {e.device_time_total / 1e3:.3f} ms ({e.count}x)"
+            for e in sorted(bwd, key=lambda e: -e.device_time_total)[:top]))
     ours = [e for e in kernels
             if any(k in e.key for k in ("closest_hit", "tile_walk", "scatter_items"))]
     log(f"[profile]   the trace kernels: " + (", ".join(
         f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms in {e.count} launches" for e in ours)
         or "none"))
+
+
+def render_advance(scene, cam, settings):
+    """One forward frame, for ``profile_frames``."""
+    import torch
+
+    from hikari_tpu_torch.render.pipeline import render_frame
+
+    def advance(state):
+        with torch.no_grad():
+            return render_frame(scene, cam, state, settings)[1]
+
+    return advance
 
 
 def duplicate_rows(rows, dup, device):
@@ -794,7 +863,7 @@ def run_render(device):
         for label, size, frames, entry, argv in cases:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(device)
-            ch.launches = tw.launches = sc.launches = api.trace_calls = 0
+            reset_counts()
             res = entry(argv)
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated(device)
@@ -817,6 +886,217 @@ def run_render(device):
                 f"luminance {mean_lum:.4f}, trace calls {traces} = closest-hit launches {k1}")
             launches += k1
     return launches
+
+
+def reset_counts():
+    """Set every trace and kernel launch count to 0."""
+    from hikari_tpu_torch.trace import api
+    from hikari_tpu_torch.trace import closest_hit as ch
+    from hikari_tpu_torch.trace import scatter as sc
+    from hikari_tpu_torch.trace import tile_walk as tw
+
+    ch.launches = ch.streamed_launches = tw.launches = sc.launches = api.trace_calls = 0
+
+
+def read_counts():
+    """The launch counts of the three trace kernels and the trace calls."""
+    from hikari_tpu_torch.trace import api
+    from hikari_tpu_torch.trace import closest_hit as ch
+    from hikari_tpu_torch.trace import scatter as sc
+    from hikari_tpu_torch.trace import tile_walk as tw
+
+    return {"closest_hit": ch.launches, "tile_walk": tw.launches, "scatter_items": sc.launches,
+            "trace_calls": api.trace_calls}
+
+
+def grad_advance(scene, cam, settings, device):
+    """One fwd+grad frame through ``make_train_step`` against a zero
+    target, for ``profile_frames``."""
+    import torch
+
+    from hikari_tpu_torch.parallel import make_train_step
+
+    step = make_train_step(settings)
+    target = torch.zeros(settings.output_size + (3,), device=device)
+
+    def advance(state):
+        return step(scene, cam, state, target)[3]
+
+    return advance
+
+
+def run_grad_path(name, scene, cam, settings, device):
+    """[grad]: ``FRAMES`` fwd+grad frames through ``parallel.make_train_step``
+    against a zero target, every count set to 0 just before and read just
+    after. The step's forward is ``sharding.render_loss``, looked up when
+    the step runs: wrapped here, it marks where each frame's forward ends,
+    so the closest-hit launches split into the forward's and the
+    backward's (which must be 0: the searches are detached). Checks that
+    every trace went through the kernel, that each leaf's gradient is
+    finite in every frame and nonzero (``sun_color`` may be 0: cornell's
+    sun is black) and that the image is finite. Returns (final state,
+    forward closest-hit launches)."""
+    import numpy as np
+    import torch
+
+    from hikari_tpu_torch.parallel import DIFF_LEAVES, make_train_step, sharding
+    from hikari_tpu_torch.render.pipeline import initial_state
+    from hikari_tpu_torch.trace import closest_hit as ch
+
+    step = make_train_step(settings)
+    state = initial_state(settings, device)
+    target = torch.zeros(settings.output_size + (3,), device=device)
+    real_loss = sharding.render_loss
+    fwd_end = []
+
+    def marked_loss(*args):
+        res = real_loss(*args)
+        fwd_end.append(ch.launches)
+        return res
+
+    frame_ms, norms, finite, k1_fwd, k1_bwd = [], [], [], 0, 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    sharding.render_loss = marked_loss
+    try:
+        for _ in range(FRAMES):
+            k1_start = ch.launches
+            t0 = time.perf_counter()
+            loss, grads, out, state = step(scene, cam, state, target)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            k1_fwd += fwd_end[-1] - k1_start
+            k1_bwd += ch.launches - fwd_end[-1]
+            norms.append(torch.stack([grads[k].double().norm() for k in DIFF_LEAVES]))
+            finite.append(torch.stack([torch.isfinite(grads[k]).all() for k in DIFF_LEAVES]))
+    finally:
+        sharding.render_loss = real_loss
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    traces = counts["trace_calls"]
+    if not (traces > 0 and counts["closest_hit"] == traces == k1_fwd and k1_bwd == 0
+            and counts["tile_walk"] == counts["scatter_items"] == 0):
+        raise AssertionError(f"{name}: {counts}, closest-hit launches in the forward {k1_fwd}, "
+                             f"in the backward {k1_bwd}")
+    norms = torch.stack(norms).cpu().numpy()  # (frames, leaves)
+    finite = torch.stack(finite).cpu().numpy()
+    median_ms = float(np.median(frame_ms[1:]))
+    log(f"[grad] {name} {settings.width}x{settings.height} from {settings.render_size[1]}x"
+        f"{settings.render_size[0]}, {FRAMES} fwd+grad frames: ms/frame median(frames 2-{FRAMES}) "
+        f"{median_ms:.2f} (all: {', '.join(f'{m:.1f}' for m in frame_ms)}); peak memory "
+        f"{peak / 2**30:.3f} GiB; last loss {float(loss):.6g}")
+    log(f"[grad] {name}: {traces} trace calls = closest-hit launches in the forward {k1_fwd}; "
+        f"closest-hit launches in the backward {k1_bwd}")
+    bad = []
+    for j, k in enumerate(DIFF_LEAVES):
+        all_finite, nonzero = bool(finite[:, j].all()), bool((norms[:, j] > 0).all())
+        log(f"[grad]   {k}: finite in every frame {all_finite}, L2 norm (last frame) "
+            f"{norms[-1, j]:.6g}, nonzero in every frame {nonzero}")
+        if not all_finite or not (nonzero or k == "sun_color"):
+            bad.append(k)
+    if bad:
+        raise AssertionError(f"{name}: non-finite or zero gradients in {bad}")
+    if not bool(torch.isfinite(out.image).all()):
+        raise AssertionError(f"{name}: non-finite image")
+    return state, k1_fwd
+
+
+def check_grad_small(name, scene_gpu, scene_cpu, cam_cpu, settings, device, loss_rtol, leaf_rel):
+    """[grad check]: the train step on the card (kernels, CUDA ATen)
+    against the CPU (twins) at frames 2 and 3 from one state: the loss
+    within ``loss_rtol`` and each leaf within a relative L2 error of
+    ``leaf_rel`` (``sun_color``, ~1e-6 in norm on cornell, within 1e-8
+    absolute)."""
+    import torch
+
+    from hikari_tpu_torch.parallel import DIFF_LEAVES, make_train_step
+    from hikari_tpu_torch.render.pipeline import initial_state, render_frame
+    from hikari_tpu_torch.utils import map_tensors
+
+    step = make_train_step(settings)
+    state = initial_state(settings, "cpu")
+    with torch.no_grad():
+        for _ in range(2):
+            _, state = render_frame(scene_cpu, cam_cpu, state, settings)
+    target = torch.zeros(settings.output_size + (3,))
+    cam_gpu = cam_cpu.to(device)
+    for frame in (2, 3):
+        loss_g, grads_g, _, _ = step(scene_gpu, cam_gpu, map_tensors(lambda x: x.to(device), state),
+                                     target.to(device))
+        loss_c, grads_c, _, state = step(scene_cpu, cam_cpu, state, target)
+        loss_err = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+        errs = {}
+        for k in DIFF_LEAVES:
+            g, gc = grads_g[k].cpu().double(), grads_c[k].double()
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"[grad check] {name} frame {frame}: non-finite {k}")
+            d, n = float((g - gc).norm()), float(gc.norm())
+            errs[k] = d if k == "sun_color" else d / n
+        bad = {k: e for k, e in errs.items() if not e <= (1e-8 if k == "sun_color" else leaf_rel)}
+        if not loss_err <= loss_rtol or bad:
+            raise AssertionError(f"[grad check] {name} frame {frame}: loss rel err {loss_err}, "
+                                 f"leaves past the bound {bad}")
+        log(f"[grad check] {name} {settings.width}x{settings.height} frame {frame}: card vs CPU "
+            f"twin, loss rel err {loss_err:.3g} (<= {loss_rtol}), relative L2 per leaf (<= "
+            f"{leaf_rel}; sun_color absolute) " + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
+
+
+def run_bench_phase(device):
+    """[bench]: ``hikari_tpu_torch.bench``'s main for cornell with its
+    extras (scene and city at 512p), counts set to 0 just before; its JSON
+    line and its standard-error lines are echoed, prefixed. Every extra must
+    have run, the city through the tile walk. Returns the launch counts."""
+    import contextlib
+    import io
+    import json as _json
+
+    from hikari_tpu_torch import bench
+
+    out, err = io.StringIO(), io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        bench.main([])
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    for line in err.getvalue().splitlines():
+        log(f"[bench] {line}")
+    line = out.getvalue().strip()
+    record = _json.loads(line)  # the bench prints exactly one JSON line
+    log(f"[bench] {line}")
+    extra = record.get("extra", [])
+    failed = [x for x in extra if "value" not in x]
+    if failed or not record["value"] > 0 or record["finite"] is not True:
+        raise AssertionError(f"[bench] failed: {record}")
+    for x in extra:
+        if x["finite"] is not True:
+            log(f"[bench] extra {x['config']}: the accumulator is NOT finite (non-finite "
+                f"gradients); its {x['ms_per_frame']:.2f} ms/frame is that of a non-finite run")
+    if not (counts["closest_hit"] > 0 and counts["tile_walk"] > 0 and counts["scatter_items"] == 0
+            and counts["closest_hit"] + counts["tile_walk"] == counts["trace_calls"]):
+        raise AssertionError(f"[bench] launches {counts}")
+    log(f"[bench] {seconds:.1f} s; launches {counts} (tile walk: the city extra)")
+    return counts
+
+
+def run_train_phase(device):
+    """[train]: the port's examples/train on the card, 10 steps at 48 px;
+    the loss must fall and every trace go through the closest-hit kernel."""
+    from hikari_tpu_torch.examples.train import train
+
+    reset_counts()
+    t0 = time.perf_counter()
+    losses, est, true = train(10, 48, 0.5, device, log=lambda m: log(f"[train] {m}"))
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"[train] the loss did not fall: {losses}")
+    if not (counts["trace_calls"] > 0 and counts["closest_hit"] == counts["trace_calls"]):
+        raise AssertionError(f"[train] launches {counts}")
+    log(f"[train] 10 steps at 48 px in {seconds:.1f} s: loss {losses[0]:.9g} -> {losses[-1]:.9g}; "
+        f"estimate {est.round(4)}, true {true.round(4)}; launches {counts}")
+    return counts
 
 
 def main():
@@ -922,13 +1202,13 @@ def main():
     if cornell_launches["tile_walk"]:
         raise AssertionError("cornell_path launched the tile walk: it has only 36 triangles")
     if profile:
-        profile_frames("cornell_path", cornell, cam, cornell_state, cornell_settings)
+        profile_frames("cornell_path", render_advance(cornell, cam, cornell_settings), cornell_state)
     cornell_bench = bench_settings(cornell_settings, CORNELL_HW[1], CORNELL_HW[0], "auto")
     bench_state, bench_launches = run_main_path("cornell_bench", cornell, cam, cornell_bench, dev)
     if bench_launches["tile_walk"] or bench_launches["scatter_items"]:
         raise AssertionError(f"cornell_bench launched another search than K1: {bench_launches}")
     if profile:
-        profile_frames("cornell_bench", cornell, cam, bench_state, cornell_bench)
+        profile_frames("cornell_bench", render_advance(cornell, cam, cornell_bench), bench_state)
     del bench_state, cornell_state
     _, cam_s, small = cornell_config(device="cpu")
     check_small("cornell", cornell, cornell_cpu, cam_s,
@@ -1051,14 +1331,14 @@ def main():
     if city_launches["closest_hit"] or city_launches["scatter_items"]:
         raise AssertionError(f"city_path sent a trace to another search than K2: {city_launches}")
     if profile:
-        profile_frames("city_path", city, city_cam, city_state, city_settings)
+        profile_frames("city_path", render_advance(city, city_cam, city_settings), city_state)
     del city_state
     city_bench = bench_settings(city_settings, CITY_HW[1], CITY_HW[0], "scatter")
     cb_state, cb_launches = run_main_path("city_bench_scatter", city, city_cam, city_bench, dev)
     if cb_launches["closest_hit"] or cb_launches["tile_walk"]:
         raise AssertionError(f"city_bench_scatter sent a trace past the scatter kernel: {cb_launches}")
     if profile:
-        profile_frames("city_bench_scatter", city, city_cam, cb_state, city_bench)
+        profile_frames("city_bench_scatter", render_advance(city, city_cam, city_bench), cb_state)
     del cb_state
     small_arrays = compile_scene(city_scene(blocks=3, detail=True))
     if len(small_arrays.tri_world) <= city_settings.bruteforce_max_tris:
@@ -1081,6 +1361,28 @@ def main():
     # ---- 6. the entry points ----
     render_launches = run_render(dev)
     log(f"[render] closest-hit launches over the entry points: {render_launches}")
+
+    # ---- 7. fwd+grad: the train step, the port bench, the train example ----
+    from hikari_tpu_torch.bench import bench_config
+
+    del city, small_gpu, small_cpu
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _, _, grad_settings = bench_config("cornell", dev)
+    grad_state, grad_k1 = run_grad_path("cornell_bench", cornell, cam, grad_settings, dev)
+    if profile:
+        profile_frames("cornell_bench fwd+grad", grad_advance(cornell, cam, grad_settings, dev),
+                       grad_state)
+    del grad_state
+    torch.cuda.empty_cache()
+    log(f"[grad] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for label, s in GRAD_CHECKS:
+        check_grad_small(label, cornell, cornell_cpu, cam_s, s(small), dev, GRAD_LOSS_RTOL,
+                         GRAD_LEAF_REL)
+    log(f"[grad check] {time.perf_counter() - t0:.1f} s")
+    bench_counts = run_bench_phase(dev)
+    run_train_phase(dev)
 
     if "jax" in sys.modules or "hikari_tpu" in sys.modules:
         raise AssertionError("the port imported jax or hikari_tpu")

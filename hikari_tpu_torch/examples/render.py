@@ -74,7 +74,7 @@ def main(argv=None) -> dict:
     if args.stream:
         raise NotImplementedError(
             "--stream needs scene/update.update_activity, which is not ported yet "
-            "(ROADMAP.md queue 1 item 5, 'Dynamic scenes')"
+            "(ROADMAP.md queue 1 item 6, 'Dynamic scenes')"
         )
     from hikari_tpu_torch.io.image import write_png
     from hikari_tpu_torch.utils import resolve_device

@@ -192,7 +192,7 @@ def flight_helmet_scene(assets: str | None = None) -> Scene:
     if assets and os.path.exists(os.path.join(assets, FLIGHT_HELMET)):
         raise NotImplementedError(
             f"{os.path.join(assets, FLIGHT_HELMET)} needs glTF loading and texture sampling, "
-            "which are not ported yet (ROADMAP.md queue 1 item 1, 'Large-scene leftovers': "
+            "which are not ported yet (ROADMAP.md queue 1 item 5, 'Large-scene leftovers': "
             "io/gltf.py and device texture sampling)"
         )
     scene = Scene(materials=[], directional_light=_sun_from_euler(-1.0, 0.6, 0.0, 10000.0))

@@ -9,7 +9,7 @@ from dataclasses import dataclass
 
 import torch
 
-from hikari_tpu_torch.utils import PI, dot3, safe_normalize, saturate
+from hikari_tpu_torch.utils import PI, dot3, safe_normalize, saturate, take_rows
 
 
 def perceptual_roughness_to_roughness(perceptual_roughness):
@@ -123,7 +123,7 @@ def retrieve_surface(scene, material_index, uv=None) -> Surface:
         ],
         dim=-1,
     )
-    rows = packed[safe]  # (..., 11)
+    rows = take_rows(packed, safe)  # (..., 11)
     metallic = rows[..., 8]
     return Surface(
         base_color=rows[..., 0:4],
@@ -138,7 +138,7 @@ def retrieve_surface(scene, material_index, uv=None) -> Surface:
 def retrieve_emissive(scene, material_index, uv=None):
     """Reference ``retreive_emissive`` (light.wgsl:744-747, :783-793)."""
     _require_untextured(scene, uv)
-    return scene.mat_emissive[material_index.clamp(min=0)]
+    return take_rows(scene.mat_emissive, material_index.clamp(min=0))
 
 
 def compute_emissive_radiance(emissive):

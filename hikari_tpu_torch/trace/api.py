@@ -35,7 +35,7 @@ from hikari_tpu_torch.trace.scatter import CLUSTER as SCATTER_CLUSTER
 from hikari_tpu_torch.trace.scatter import trace_scatter
 from hikari_tpu_torch.trace.tiled import TILE_R
 from hikari_tpu_torch.trace.tile_walk import pack_clusters, trace_tile_walk
-from hikari_tpu_torch.utils import safe_normalize
+from hikari_tpu_torch.utils import safe_normalize, take_rows
 
 # trace_rays calls whose rays lay on a CUDA device (each is one kernel
 # launch, so a run can check every trace went through a kernel).
@@ -236,7 +236,7 @@ def _trace_tile_walk(scene: SceneBuffers, o, d, maxd, early, excl, lo, hi):
 def gather_triangle_vertices(tri_world, prim):
     """Hit-triangle vertices (v0, v1, v2), each (..., 3); differentiable
     with respect to ``tri_world``."""
-    v = tri_world.reshape(tri_world.shape[0], 9)[prim]
+    v = take_rows(tri_world.reshape(tri_world.shape[0], 9), prim)
     return v[..., 0:3], v[..., 3:6], v[..., 6:9]
 
 
@@ -298,7 +298,7 @@ def hit_info(scene: SceneBuffers, origin, direction, hit: Hit) -> HitInfo:
     uv + world normal from vertex attributes, world position from the
     (differentiably refined) distance."""
     safe_prim = hit.prim.clamp(min=0)
-    rows = _hit_rows(scene)[safe_prim]  # (..., 24)
+    rows = take_rows(_hit_rows(scene), safe_prim)  # (..., 24)
     v0, v1, v2 = rows[..., 0:3], rows[..., 3:6], rows[..., 6:9]
     t, u, v = _refine_from_vertices(origin, direction, hit, v0, v1, v2)
     n0, n1, n2 = rows[..., 9:12], rows[..., 12:15], rows[..., 15:18]

@@ -170,20 +170,31 @@ ATROUS_KERNEL = np.array(
 )
 
 
+def take_rows(table, idx):
+    """``table[idx]`` for an integer ``idx`` (...,): the rows of ``table``
+    (N, ...) as one ``index_select``, whose backward adds the cotangent
+    rows into the table's gradient with ``index_add``. The backward of
+    advanced indexing (``index_put`` with accumulate) sorts the indices and
+    sums each run of equal ones in one warp; on the few rows of a material
+    or triangle table, read by every pixel of a 960x540 frame, that took
+    ~140 ms a call on the H100."""
+    return torch.index_select(table, 0, idx.reshape(-1)).reshape(idx.shape + table.shape[1:])
+
+
 def gather_channels(table, idx):
     """Rows of ``table`` (N,) or (N, C) at ``idx`` (...,)."""
-    return table[idx]
+    return take_rows(table, idx)
 
 
 def gather_pixels(img, y, x):
     """Texels of img (H, W) or (H, W, C) at integer grids y/x (...,)."""
     h, w = img.shape[0], img.shape[1]
-    return img.reshape((h * w,) + img.shape[2:])[y * w + x]
+    return take_rows(img.reshape((h * w,) + img.shape[2:]), y * w + x)
 
 
 def map_tensors(fn, obj):
     """Apply ``fn`` to every tensor inside a (nested) frozen dataclass,
-    list or tuple; other leaves are returned unchanged — the
+    list, tuple or dict; other leaves are returned unchanged — the
     counterpart of ``jax.tree_util.tree_map`` for the port's records."""
     if isinstance(obj, torch.Tensor):
         return fn(obj)
@@ -198,6 +209,8 @@ def map_tensors(fn, obj):
         )
     if isinstance(obj, (list, tuple)):
         return type(obj)(map_tensors(fn, v) for v in obj)
+    if isinstance(obj, dict):
+        return {k: map_tensors(fn, v) for k, v in obj.items()}
     return obj
 
 

@@ -161,7 +161,7 @@ def test_scene_config_with_asset_raises(tmp_path):
     gltf = tmp_path / scenes.FLIGHT_HELMET
     gltf.parent.mkdir(parents=True)
     gltf.write_text("{}")
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 5, 'Large-scene leftovers'"):
         scenes.scene_config(device="cpu", assets=str(tmp_path))
 
 
@@ -175,7 +175,7 @@ def test_render_entry_point(tmp_path):
     img = timage.read_png(str(out))
     assert img.shape == (24, 24, 3) and np.isfinite(res["image"]).all()
     assert img.mean() > 0.0 and len(res["frame_seconds"]) == 2
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 6, 'Dynamic scenes'"):
         render.main(["cornell", "--cpu", "--stream"])
 
 

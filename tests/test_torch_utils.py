@@ -192,6 +192,24 @@ def test_grid_and_gather_helpers_match():
                                   np.asarray(ju.gather_channels(jnp.asarray(table), jnp.asarray(idx))))
 
 
+def test_take_rows_matches_indexing():
+    """take_rows is table[idx], forward bit for bit; its gradient (an
+    index_add) equals advanced indexing's (an accumulating index_put) on a
+    small table read many times over, as a material table is."""
+    rng = np.random.default_rng(9)
+    table = torch.from_numpy(rng.normal(size=(4, 11)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 4, (40, 30)))
+    cot = torch.from_numpy(rng.normal(size=(40, 30, 11)).astype(np.float32))
+    grads = []
+    for take in (tu.take_rows, lambda t, i: t[i]):
+        t = table.clone().requires_grad_(True)
+        out = take(t, idx)
+        grads.append(torch.autograd.grad(out, t, cot)[0])
+        assert out.shape == (40, 30, 11)
+    assert torch.equal(tu.take_rows(table, idx), table[idx])
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
+
+
 def _sane_reservoir(pkg_restir, seed, array):
     """A reservoir grid with plausible values (unit normals, positions in
     the box, positive weights) as ``array`` tensors of one package."""
