@@ -72,6 +72,26 @@ Phases, each reported on its own line:
      be finite; an extra whose accumulator is not finite is named on a
      line of its own. [train]: ``examples/train`` for 10 steps at 48 px;
      its loss must fall. Each phase prints its seconds.
+  8. output options (after 3). [output]: 8 frames of ``cornell_output``
+     (the cornell config at 1280x720 from 853x480 with FSR1 at 1.5, TAA
+     off, denoise, one bounce, indirect spatial reuse, f16 reservoirs,
+     HDR, bloom and FXAA) through ``render_frame``: ms/frame, peak memory,
+     non-finite pixels (must be 0), mean luminance (must be > 0); the card
+     against the CPU twins at 48x64 output, frames 2-3; one
+     ``make_train_step`` frame at 48x64, every leaf finite and the
+     ``gb_gather`` clip site counted.
+  9. passes (after [grad check]). [passes]: the port's
+     ``tools/profile_prefix`` on the bench frame, forward and fwd+grad:
+     per coarse stage the prefix's ms/frame and device ms/frame with
+     their deltas; the device deltas' sum within 3% of the untruncated
+     frame profiled again, the host sum printed beside the frame timed
+     again.
+  10. textured glTF (after [render]). [textured]: ``examples/render
+     scene --assets DIR`` at 512x512 on a small textured glTF written into
+     a temporary asset directory, against the untextured stand-in; the
+     card against the CPU twins on that scene at 48x62, frames 2-3.
+  Each of 8-10 sets the counts to 0 just before each run and requires
+  every trace to go through the closest-hit kernel.
 Every kernel case has a tie case: one triangle duplicated at prims 1, 4 and
 8 (for the tile walk, 1 and 4 of one cluster and the next cluster's row
 8), where the JAX kernels' per-sublane rule keeps the sublane-0 prim and
@@ -129,6 +149,21 @@ DISSECT_CASE = ("cornell", 256, 16)
 # leaf within 1.03e-6 relative L2 and the loss within 1.04e-7 in both
 # settings (PERF.md); the bounds leave ten times that.
 GRAD_LOSS_RTOL, GRAD_LEAF_REL = 1e-6, 1e-5
+# [output]: cornell_output at 1280x720 (a size the JAX bloom defines:
+# its mip chain halves 720x1280 four times without an odd side) and the
+# card-vs-CPU check at 48x64; [passes]: frames a prefix (frame 1 warms up);
+# [textured]: scene_textured at 512 and its check at 48x62.
+OUTPUT_HW = (720, 1280)
+OUTPUT_SMALL_HW = (48, 64)
+# At an even width cornell's pixel centres fall on the box quads' exact
+# diagonals: the card's and the CPU's 1-ulp different ray directions hit
+# or miss there, and spatial reuse and the denoiser spread those pixels
+# past the check's share. [output]'s small check and train step move the
+# camera 0.0137 to the side.
+OUTPUT_SMALL_EYE_X = 0.0137
+PASSES_FRAMES = 4
+TEXTURED_SIZE = 512
+TEXTURED_SMALL_HW = (48, 62)
 GRAD_CHECKS = (
     ("cornell temporal only, f32 reservoirs",
      lambda s: grad_small_settings(s, 63, 48, bench=False)),
@@ -154,9 +189,11 @@ def path_settings(settings, width, height):
 
 
 def bench_settings(settings, width, height, tracer):
-    """The bench frame's settings (bench.py:77-116), forward only: the
-    config at the given output size, SMAA TU4x at 2x, TAA Jasmine,
-    denoise, one bounce, the config's spatial-reuse defaults."""
+    """The bench frame's post chain (bench.py:77-116) on ``settings``: the
+    output size, SMAA TU4x at 2x, TAA Jasmine, denoise, one bounce. The
+    spatial reuses and the reservoir precision stay those of ``settings``
+    (``path_settings`` turns both reuses off, ``bench_config`` keeps the
+    config's)."""
     from hikari_tpu_torch.config import Taa, Upscale
 
     return settings.replace(
@@ -345,7 +382,7 @@ def check_cluster_errors(where):
                              f"outside the table")
 
 
-def run_main_path(name, scene, cam, settings, device):
+def run_main_path(name, scene, cam, settings, device, tag="[main]"):
     """``FRAMES`` frames through ``render_frame`` with every launch count
     set to 0 just before and read just after. Checks that every trace went
     through a kernel and that the image is finite and lit; returns (final
@@ -353,7 +390,7 @@ def run_main_path(name, scene, cam, settings, device):
     import numpy as np
     import torch
 
-    from hikari_tpu_torch.render.pipeline import initial_state, render_frame
+    from hikari_tpu_torch.render.pipeline import image_size, initial_state, render_frame
     from hikari_tpu_torch.trace import api
     from hikari_tpu_torch.trace import closest_hit as ch
     from hikari_tpu_torch.trace import scatter as sc
@@ -385,7 +422,7 @@ def run_main_path(name, scene, cam, settings, device):
     stats = {k: float(v) for k, v in out.stats.items()}
     img = out.image
     rh, rw = settings.render_size
-    want_hw = (2 * rh, 2 * rw) if settings.upscale.mode.value == "smaa_tu4x" else settings.output_size
+    want_hw = image_size(settings)
     if tuple(img.shape) != (*want_hw, 4):
         raise AssertionError(f"{name}: image shape {tuple(img.shape)}")
     if stats["nonfinite_pixels"] != 0 or not bool(torch.isfinite(img).all()):
@@ -403,20 +440,21 @@ def run_main_path(name, scene, cam, settings, device):
         f16_inf[k] = sum(int(torch.isinf(x).sum()) for x in (
             res.w, res.w_sum, res.w2_sum, res.s.radiance) if x.dtype == torch.float16)
     median_ms = float(np.median(frame_ms[1:]))
-    log(f"[main] {name} {settings.width}x{settings.height}, {FRAMES} frames: {traces} trace calls, "
+    log(f"{tag} {name} {settings.width}x{settings.height}, {FRAMES} frames: {traces} trace calls, "
         f"kernel launches {launches}; ms/frame median(frames 2-{FRAMES}) {median_ms:.2f} "
         f"(all: {', '.join(f'{m:.1f}' for m in frame_ms)}); peak memory "
         f"{peak / 2**30:.3f} GiB; mean luminance {mean_lum:.4f}; stats {stats}")
-    log(f"[main] {name} last frame: non-finite values per channel {nonfinite}; inf entries in "
+    log(f"{tag} {name} last frame: non-finite values per channel {nonfinite}; inf entries in "
         f"the f16 reservoir state (w, w_sum, w2_sum, radiance) {f16_inf}; scatter items "
         f"dropped per frame {dropped}; closest-hit launches over tables above 2,048 "
         f"triangles {launches_k1b}")
     return state, dict(launches, closest_hit_k1b=launches_k1b)
 
 
-def check_small(name, scene_gpu, scene_cpu, cam, settings, device):
+def check_small(name, scene_gpu, scene_cpu, cam, settings, device, frames=(0, 1, 2)):
     """The card (kernels) against the CPU (twins), frame by frame from one
-    state. Discrete ReSTIR choices may flip a few edge pixels on 1-ulp
+    state, compared at ``frames`` (the CPU runs the frames before them).
+    Discrete ReSTIR choices may flip a few edge pixels on 1-ulp
     differences of transcendental functions, hence a share-of-pixels
     bound."""
     import torch
@@ -427,7 +465,10 @@ def check_small(name, scene_gpu, scene_cpu, cam, settings, device):
     cam_cpu = cam.to("cpu")
     st_cpu = initial_state(settings, "cpu")
     with torch.no_grad():
-        for frame in range(3):
+        for frame in range(max(frames) + 1):
+            if frame not in frames:
+                _, st_cpu = render_frame(scene_cpu, cam_cpu, st_cpu, settings)
+                continue
             st_gpu = map_tensors(lambda x: x.to(device), st_cpu)
             o_gpu, _ = render_frame(scene_gpu, cam_cpu.to(device), st_gpu, settings)
             o_cpu, st_cpu = render_frame(scene_cpu, cam_cpu, st_cpu, settings)
@@ -1099,6 +1140,196 @@ def run_train_phase(device):
     return counts
 
 
+def output_settings(settings, width, height):
+    """[output]'s settings: the bench frame's lighting (denoise, one
+    bounce, indirect spatial reuse, f16 reservoirs, ``reproject="shift"``)
+    with FSR1 at 1.5 instead of SMAA TU4x, TAA off (the JAX package's FSR1
+    path fails under TAA Jasmine, hikari_tpu/render/taa.py:402) and HDR,
+    bloom and FXAA on."""
+    from hikari_tpu_torch.config import Taa, Upscale
+
+    return settings.replace(
+        width=width, height=height, upscale=Upscale.fsr1(1.5), taa=Taa.NONE, denoise=True,
+        indirect_bounces=1, indirect_spatial_reuse=True, emissive_spatial_reuse=False,
+        emissive_lit=True, reservoir_f16=True, reproject="shift", remat=False, hdr=True,
+        bloom=True, fxaa=True, collect_stats=True, tracer="auto",
+    )
+
+
+def require_k1_only(label, counts):
+    """Every trace of a phase went through the closest-hit kernel."""
+    if not (counts["trace_calls"] > 0 and counts["closest_hit"] == counts["trace_calls"]
+            and counts["tile_walk"] == counts["scatter_items"] == 0):
+        raise AssertionError(f"{label}: launches {counts}")
+
+
+def run_output_phase(cornell, cornell_cpu, cam, small, device):
+    """[output]: ``cornell_output`` (1280x720 from 853x480, FSR1 at 1.5,
+    HDR, bloom, FXAA) for ``FRAMES`` frames through ``render_frame``; the
+    card against the CPU twins at 48x64 output at frames 2-3 (the camera
+    moved by ``OUTPUT_SMALL_EYE_X``); one
+    ``make_train_step`` frame at 48x64 on the card, every leaf finite and
+    the ``gb_gather`` gradient firewall (the fractional-ratio G-buffer
+    gather) among the counted clip sites. Returns the closest-hit
+    launches of the 8 frames."""
+    import os
+
+    import torch
+
+    from hikari_tpu_torch.diff import clip_engagement_report, reset_clip_engagement
+    from hikari_tpu_torch.parallel import DIFF_LEAVES, make_train_step
+    from hikari_tpu_torch.render.camera import Camera
+    from hikari_tpu_torch.render.pipeline import initial_state, render_frame
+
+    t0 = time.perf_counter()
+    settings = output_settings(small, OUTPUT_HW[1], OUTPUT_HW[0])
+    state, launches = run_main_path("cornell_output", cornell, cam, settings, device, tag="[output]")
+    del state
+    require_k1_only("[output] cornell_output", dict(launches, trace_calls=launches["closest_hit"]))
+    small_out = output_settings(small, OUTPUT_SMALL_HW[1], OUTPUT_SMALL_HW[0])
+    x = OUTPUT_SMALL_EYE_X
+    cam_off = Camera.from_lookat(eye=(x, 1.0, 4.0), target=(x, 1.0, 0.0), device="cpu")
+    check_small("cornell_output", cornell, cornell_cpu, cam_off, small_out, device, frames=(2, 3))
+
+    st = initial_state(small_out, device)
+    cam_gpu = cam_off.to(device)
+    with torch.no_grad():
+        for _ in range(2):
+            _, st = render_frame(cornell, cam_gpu, st, small_out)
+    reset_clip_engagement()
+    os.environ["HIKARI_COUNT_CLIP"] = "1"
+    reset_counts()
+    try:
+        target = torch.zeros(small_out.output_size + (3,), device=device)
+        loss, grads, out, _ = make_train_step(small_out)(cornell, cam_gpu, st, target)
+    finally:
+        del os.environ["HIKARI_COUNT_CLIP"]
+    counts = read_counts()
+    require_k1_only("[output] train step", counts)
+    report = clip_engagement_report()
+    bad = [k for k in DIFF_LEAVES if not bool(torch.isfinite(grads[k]).all())]
+    if bad or "gb_gather" not in report or not bool(torch.isfinite(out.image).all()):
+        raise AssertionError(f"[output] train step: non-finite leaves {bad}, clip sites {report}")
+    log(f"[output] train step {small_out.width}x{small_out.height} from "
+        f"{small_out.render_size[1]}x{small_out.render_size[0]}, frame 2: loss {float(loss):.6g}, "
+        f"every leaf finite; clip sites (engaged, seen, rate): "
+        + ", ".join(f"{k} {v}" for k, v in report.items()) + f"; launches {counts}")
+    log(f"[output] {time.perf_counter() - t0:.1f} s")
+    return launches["closest_hit"]
+
+
+def run_passes_phase(device):
+    """[passes]: the port's ``tools/profile_prefix`` on the bench frame
+    (cornell 1920x1080 from 960x540), forward, then fwd+grad: per stage
+    the prefix's ms/frame and device ms/frame and their deltas. The deltas
+    telescope to the untruncated prefix, so the device sum is held against
+    the untruncated frame profiled again at another frame, within 3% (the
+    tool's stated frame-to-frame spread). The host sum is printed beside
+    the frame timed again, with the larger of the two runs' ranges, and
+    not checked: on a shared host two runs of the same frame have differed
+    by more than either run's range. Every trace must go through the
+    closest-hit kernel. Returns the closest-hit launches."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from hikari_tpu_torch.tools import profile_prefix
+
+    launches = 0
+    for grad in (False, True):
+        t0 = time.perf_counter()
+        argv = ["--config", "cornell", "--frames", str(PASSES_FRAMES)] + (["--grad"] if grad else [])
+        out = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(out):
+            res = profile_prefix.main(argv)
+        counts = read_counts()
+        require_k1_only(f"[passes] {'grad' if grad else 'fwd'}", counts)
+        launches += counts["closest_hit"]
+        for line in out.getvalue().splitlines():
+            log(f"[passes] {line}")
+        rows, again, dev_again = res["rows"], res["full_again"], res["device_again"]
+        mode = "fwd+grad" if grad else "fwd"
+        deltas = sum(r["delta_ms"] for r in rows)
+        spread = max(max(x) - min(x) for x in (rows[-1]["samples"], again))
+        dev_deltas = sum(r["delta_device_ms"] for r in rows)
+        if not abs(dev_deltas - dev_again) <= 0.03 * dev_again:
+            raise AssertionError(f"[passes] {mode}: the device deltas sum to {dev_deltas:.3f} "
+                                 f"ms/frame, the untruncated frame profiled again {dev_again:.3f}")
+        log(f"[passes] {mode}: host stage deltas {deltas:.2f} ms/frame, the untruncated frame "
+            f"timed again {np.median(again):.2f} (the larger run range {spread:.2f} ms; printed, "
+            f"not checked); device "
+            f"stage deltas {dev_deltas:.3f} ms/frame, profiled again {dev_again:.3f} (3%: "
+            f"{0.03 * dev_again:.3f}); {time.perf_counter() - t0:.1f} s; launches {counts}")
+    return launches
+
+
+def run_textured_phase(device):
+    """[textured]: ``scene_textured``, the port's examples/render ``scene``
+    on a small textured glTF written into a temporary
+    ``<assets>/models/FlightHelmet/FlightHelmet.gltf``
+    (``io.gltf.write_textured_demo``: a checker base-color floor, a box
+    with metallic-roughness and occlusion textures, a quad with an
+    emissive texture, 528 triangles), at 512x512 for ``FRAMES`` frames with
+    ``scene_config``'s settings (SMAA TU4x at 2, TAA Jasmine, denoise, both
+    spatial reuses); the image must be finite and lit, and its mean
+    luminance differ from the untextured stand-in's (the same entry point
+    without the asset); then the card against the CPU twins on that scene
+    at 48x62, frames 2-3. Returns the closest-hit launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hikari_tpu_torch.examples import render
+    from hikari_tpu_torch.io.gltf import write_textured_demo
+    from hikari_tpu_torch.io.scenes import FLIGHT_HELMET, scene_config
+    from hikari_tpu_torch.scene import compile_scene, to_device
+    from hikari_tpu_torch.utils import luminance
+
+    t0 = time.perf_counter()
+    launches = 0
+    size = TEXTURED_SIZE
+    with tempfile.TemporaryDirectory() as tmp:
+        write_textured_demo(os.path.join(tmp, FLIGHT_HELMET))
+        means = {}
+        for label, extra in (("scene_textured", ["--assets", tmp]), ("scene untextured", [])):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            reset_counts()
+            res = render.main(["scene", "--frames", str(FRAMES), "--size", str(size), "--out",
+                               f"{tmp}/{label.replace(' ', '_')}.png"] + extra)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            require_k1_only(f"[textured] {label}", counts)
+            launches += counts["closest_hit"]
+            peak = torch.cuda.max_memory_allocated(device)
+            img = res["outputs"].image
+            nonfinite = int((~torch.isfinite(img)).sum())
+            means[label] = float(luminance(img[..., :3]).mean())
+            if nonfinite or not means[label] > 0.0:
+                raise AssertionError(f"[textured] {label}: {nonfinite} non-finite pixels, mean "
+                                     f"luminance {means[label]}")
+            ms = float(np.median(res["frame_seconds"][1:])) * 1e3
+            log(f"[textured] {label} {size}x{size}, {FRAMES} frames: ms/frame median(frames "
+                f"2-{FRAMES}) {ms:.2f}, peak memory {peak / 2**30:.3f} GiB, non-finite pixels "
+                f"{nonfinite}, mean luminance {means[label]:.4f}; launches {counts}")
+        if means["scene_textured"] == means["scene untextured"]:
+            raise AssertionError(f"[textured] the textured scene renders as the stand-in: {means}")
+        scene, cam, settings = scene_config(TEXTURED_SMALL_HW[1], TEXTURED_SMALL_HW[0],
+                                            device="cpu", assets=tmp)
+    if not scene.textures:
+        raise AssertionError("[textured] the glTF's textures did not load")
+    arrays = compile_scene(scene)
+    check_small("scene_textured", to_device(arrays, device), to_device(arrays, "cpu"), cam,
+                settings, device, frames=(2, 3))
+    log(f"[textured] {len(scene.textures)} textures, {len(arrays.tri_world)} triangles; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main():
     import torch
 
@@ -1213,6 +1444,9 @@ def main():
     _, cam_s, small = cornell_config(device="cpu")
     check_small("cornell", cornell, cornell_cpu, cam_s,
                 path_settings(small, SMALL_HW[1], SMALL_HW[0]), dev)
+
+    # ---- 3c. the output options: FSR1 at 1.5, HDR, bloom, FXAA ----
+    output_launches = run_output_phase(cornell, cornell_cpu, cam, small, dev)
 
     # ---- 4a. tile-walk kernel vs twin on the city shapes ----
     t0 = time.perf_counter()
@@ -1361,6 +1595,7 @@ def main():
     # ---- 6. the entry points ----
     render_launches = run_render(dev)
     log(f"[render] closest-hit launches over the entry points: {render_launches}")
+    textured_launches = run_textured_phase(dev)
 
     # ---- 7. fwd+grad: the train step, the port bench, the train example ----
     from hikari_tpu_torch.bench import bench_config
@@ -1381,6 +1616,11 @@ def main():
         check_grad_small(label, cornell, cornell_cpu, cam_s, s(small), dev, GRAD_LOSS_RTOL,
                          GRAD_LEAF_REL)
     log(f"[grad check] {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    passes_launches = run_passes_phase(dev)
+    log(f"[passes] closest-hit launches: {passes_launches}")
+    log(f"[launches] closest-hit launches of this slice's paths: [output] {output_launches}, "
+        f"[passes] {passes_launches}, [textured] {textured_launches}")
     bench_counts = run_bench_phase(dev)
     run_train_phase(dev)
 

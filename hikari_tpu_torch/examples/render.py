@@ -25,7 +25,7 @@ def make_config(name: str, size: int, device, assets=None):
     from hikari_tpu_torch.io.scenes import CONFIGS
 
     if name == "cornell":
-        return CONFIGS[name](size, device=device)
+        return CONFIGS[name](size, device=device, assets=assets)
     if name == "scene":
         return CONFIGS[name](size, size, device=device, assets=assets)
     return CONFIGS[name](size, size, device=device)

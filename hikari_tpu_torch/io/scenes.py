@@ -3,13 +3,14 @@ constructor returns (Scene, Camera, RenderSettings) matching the
 reference's example scenes (examples/*.rs); ``CONFIGS`` maps the five
 names to them.
 
-The Cornell box is its procedural replica (the JAX package falls back to
-the same geometry when cornell.glb is absent); the city config builds the
-procedural city (the JAX package's stand-in when the City glTF geometry is
-absent); ``scene_config`` builds the procedural Cornell box under the sun,
-as the JAX package's FlightHelmet config does without the asset. glTF
-loading waits for ``io/gltf.py``, which is not ported yet: with the
-FlightHelmet asset present ``scene_config`` raises.
+The asset rules are the JAX package's, with the asset directory taken
+from ``assets`` or ``$HIKARI_REFERENCE_ASSETS``: the Cornell box loads
+``models/cornell.glb`` when it is there, else builds its procedural
+replica; ``scene_config`` loads the FlightHelmet glTF when it is there and
+falls back to the procedural Cornell box under the sun when it is absent or
+incomplete (``FileNotFoundError``, ``OSError``, ``KeyError``); the city
+config builds the procedural city (the JAX package's stand-in when the City
+glTF geometry is absent).
 """
 
 from __future__ import annotations
@@ -58,10 +59,32 @@ def _sun_from_euler(rx, ry, rz, illuminance=10000.0) -> DirectionalLight:
     return DirectionalLight(direction=tuple(direction), color=(illuminance,) * 3)
 
 
-def cornell_box_scene() -> Scene:
-    """The Cornell box of reference examples/cornell.rs, as the procedural
-    replica of cornell.glb's geometry and materials; the sun is black."""
+# Where the configs look for the reference's assets when not given a
+# directory: models/cornell.glb and models/FlightHelmet/FlightHelmet.gltf.
+ASSETS_ENV = "HIKARI_REFERENCE_ASSETS"
+CORNELL_GLB = os.path.join("models", "cornell.glb")
+FLIGHT_HELMET = os.path.join("models", "FlightHelmet", "FlightHelmet.gltf")
+
+
+def _asset(assets: str | None, rel: str) -> str | None:
+    """The path of asset ``rel`` under ``assets`` (default: the
+    ``HIKARI_REFERENCE_ASSETS`` directory) if it exists, else None."""
+    assets = os.environ.get(ASSETS_ENV) if assets is None else assets
+    path = os.path.join(assets, rel) if assets else None
+    return path if path and os.path.exists(path) else None
+
+
+def cornell_box_scene(assets: str | None = None) -> Scene:
+    """The Cornell box of reference examples/cornell.rs (the sun is
+    black): ``models/cornell.glb`` under ``assets`` when it is there, as the
+    JAX package loads it, else the procedural replica of its geometry and
+    materials."""
     scene = Scene(materials=[], directional_light=DirectionalLight(color=(0.0, 0.0, 0.0)))
+    glb = _asset(assets, CORNELL_GLB)
+    if glb is not None:
+        from hikari_tpu_torch.io.gltf import load_gltf
+
+        return load_gltf(glb, scene)
     return _procedural_cornell(scene)
 
 
@@ -95,11 +118,12 @@ def _procedural_cornell(scene: Scene) -> Scene:
     return scene
 
 
-def cornell_config(size: int = 512, device=None):
+def cornell_config(size: int = 512, device=None, assets: str | None = None):
     """BASELINE config 1: 'cornell.rs Cornell box: direct lighting only,
-    1 bounce, 1 spp, 512x512'. The camera lives on ``device``: the CUDA
-    card unless the caller names another (raises without a card)."""
-    scene = cornell_box_scene()
+    1 bounce, 1 spp, 512x512', on ``cornell_box_scene(assets)``. The
+    camera lives on ``device``: the CUDA card unless the caller names
+    another (raises without a card)."""
+    scene = cornell_box_scene(assets)
     cam = Camera.from_lookat(eye=(0.0, 1.0, 4.0), target=(0.0, 1.0, 0.0), device=device)
     settings = RenderSettings(
         width=size,
@@ -174,28 +198,21 @@ def simple_config(width: int = 512, height: int = 512, device=None):
     return scene, cam, settings
 
 
-# Where ``scene_config`` looks for the reference's assets (a directory
-# holding models/FlightHelmet/FlightHelmet.gltf) when not given one.
-ASSETS_ENV = "HIKARI_REFERENCE_ASSETS"
-FLIGHT_HELMET = os.path.join("models", "FlightHelmet", "FlightHelmet.gltf")
-
-
 def flight_helmet_scene(assets: str | None = None) -> Scene:
-    """The scene of reference examples/scene.rs as the JAX package's
-    ``gltf_scene("FlightHelmet")`` builds it without the asset: the
-    procedural Cornell box under a 10,000-lux sun at euler (-1.0, 0.6, 0).
-    ``assets`` (default: the ``HIKARI_REFERENCE_ASSETS`` environment
-    variable) is the reference's asset directory; where it holds the
-    FlightHelmet glTF this raises NotImplementedError, since glTF loading
-    and texture sampling are not ported yet."""
-    assets = os.environ.get(ASSETS_ENV) if assets is None else assets
-    if assets and os.path.exists(os.path.join(assets, FLIGHT_HELMET)):
-        raise NotImplementedError(
-            f"{os.path.join(assets, FLIGHT_HELMET)} needs glTF loading and texture sampling, "
-            "which are not ported yet (ROADMAP.md queue 1 item 5, 'Large-scene leftovers': "
-            "io/gltf.py and device texture sampling)"
-        )
+    """The scene of reference examples/scene.rs, as the JAX package's
+    ``gltf_scene("FlightHelmet")`` builds it: the FlightHelmet glTF under
+    ``assets`` (default: the ``HIKARI_REFERENCE_ASSETS`` directory) under a
+    10,000-lux sun at euler (-1.0, 0.6, 0); without the asset, or when its
+    checkout is incomplete, the procedural Cornell box under that sun."""
     scene = Scene(materials=[], directional_light=_sun_from_euler(-1.0, 0.6, 0.0, 10000.0))
+    path = _asset(assets, FLIGHT_HELMET)
+    if path is not None:
+        from hikari_tpu_torch.io.gltf import load_gltf
+
+        try:
+            return load_gltf(path, scene)
+        except (FileNotFoundError, OSError, KeyError):
+            pass  # an incomplete asset checkout: the procedural fallback
     return _procedural_cornell(scene)
 
 

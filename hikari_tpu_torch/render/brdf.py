@@ -9,6 +9,7 @@ from dataclasses import dataclass
 
 import torch
 
+from hikari_tpu_torch.render.texture import sample_texture_atlas, srgb_to_linear
 from hikari_tpu_torch.utils import PI, dot3, safe_normalize, saturate, take_rows
 
 
@@ -98,20 +99,31 @@ class Surface:
         )
 
 
-def _require_untextured(scene, uv):
-    if scene.num_textures > 0 and uv is not None:
-        raise NotImplementedError(
-            "textured materials need device texture sampling (hikari_tpu "
-            "render/texture.py sample_texture_atlas), which is not ported yet "
-            "(ROADMAP.md queue 1, 'Device texture sampling')"
-        )
+def _textured(scene, uv) -> bool:
+    return scene.num_textures > 0 and uv is not None
+
+
+def _sample(scene, slot, safe, uv):
+    """The material's texture in ``slot`` (a per-material id table) at
+    ``uv``: white where the material has none."""
+    from hikari_tpu_torch.render.texture import sample_texture_atlas
+
+    return sample_texture_atlas(scene.tex_atlas, scene.tex_meta, take_rows(slot, safe), uv)
+
+
+def _srgb_rgba(c):
+    return torch.cat([srgb_to_linear(c[..., :3]), c[..., 3:4]], dim=-1)
 
 
 def retrieve_surface(scene, material_index, uv=None) -> Surface:
-    """Reference ``retreive_surface`` (light.wgsl:730-794), NO_TEXTURE
-    specialization. ``material_index`` may be -1 (miss): clamped gather,
-    callers mask."""
-    _require_untextured(scene, uv)
+    """Reference ``retreive_surface`` (light.wgsl:730-794).
+    ``material_index`` may be -1 (miss): clamped gather, callers mask.
+    Without textures (or without ``uv``) this is the NO_TEXTURE
+    specialization; otherwise the base-color and emissive textures
+    (sRGB -> linear) multiply their factors, metallic takes the
+    metallic-roughness texture's red channel (light.wgsl:768) and the
+    occlusion texture's red channel is the occlusion. The normal-map slot
+    is kept but never sampled, as in the reference."""
     safe = material_index.clamp(min=0)
     packed = torch.cat(
         [
@@ -124,21 +136,31 @@ def retrieve_surface(scene, material_index, uv=None) -> Surface:
         dim=-1,
     )
     rows = take_rows(packed, safe)  # (..., 11)
+    base_color, emissive = rows[..., 0:4], rows[..., 4:8]
     metallic = rows[..., 8]
+    occlusion = torch.ones_like(metallic)
+    if _textured(scene, uv):
+        base_color = base_color * _srgb_rgba(_sample(scene, scene.mat_base_color_texture, safe, uv))
+        emissive = emissive * _srgb_rgba(_sample(scene, scene.mat_emissive_texture, safe, uv))
+        metallic = metallic * _sample(scene, scene.mat_metallic_roughness_texture, safe, uv)[..., 0]
+        occlusion = _sample(scene, scene.mat_occlusion_texture, safe, uv)[..., 0]
     return Surface(
-        base_color=rows[..., 0:4],
-        emissive=rows[..., 4:8],
+        base_color=base_color,
+        emissive=emissive,
         reflectance=rows[..., 9],
         metallic=metallic,
         roughness=perceptual_roughness_to_roughness(rows[..., 10]),
-        occlusion=torch.ones_like(metallic),
+        occlusion=occlusion,
     )
 
 
 def retrieve_emissive(scene, material_index, uv=None):
     """Reference ``retreive_emissive`` (light.wgsl:744-747, :783-793)."""
-    _require_untextured(scene, uv)
-    return take_rows(scene.mat_emissive, material_index.clamp(min=0))
+    safe = material_index.clamp(min=0)
+    emissive = take_rows(scene.mat_emissive, safe)
+    if _textured(scene, uv):
+        emissive = emissive * _srgb_rgba(_sample(scene, scene.mat_emissive_texture, safe, uv))
+    return emissive
 
 
 def compute_emissive_radiance(emissive):

@@ -14,8 +14,13 @@ from __future__ import annotations
 import torch
 
 from hikari_tpu_torch.config import F32_EPSILON, RenderSettings
-from hikari_tpu_torch.render.filters import shift2d
-from hikari_tpu_torch.render.light import _deferred_phase, strided_deferred_plane
+from hikari_tpu_torch.render.filters import nearest_sample, shift2d
+from hikari_tpu_torch.render.light import (
+    _deferred_phase,
+    _render_uv,
+    jittered_deferred_uv,
+    strided_deferred_plane,
+)
 from hikari_tpu_torch.render.types import GBuffer
 from hikari_tpu_torch.utils import ATROUS_KERNEL, luminance, safe_sqrt0
 
@@ -27,13 +32,15 @@ STEP_SIZES = (8, 4, 2, 1)
 def deferred_planes(planes, settings: RenderSettings, frame_number: int):
     """Nearest samples of full-res planes at every render pixel's jittered
     deferred uv with amount 0.5 (denoise.wgsl:37-42, :148-150): for an
-    integer upscale ratio, a strided view. Fractional ratios (FSR1) are not
-    ported yet."""
+    integer upscale ratio a strided view, for a fractional one (FSR1) a
+    nearest sample at the deferred uv."""
     ratio = settings.upscale_ratio
     if not float(ratio).is_integer():
-        raise NotImplementedError(
-            f"upscale ratio {ratio}: the deferred gather fetch is not ported yet"
+        duv = jittered_deferred_uv(
+            _render_uv(settings.render_size, planes[0].device), frame_number,
+            settings.output_size, ratio, amount=0.5,
         )
+        return [nearest_sample(a, duv) for a in planes]
     c = _deferred_phase(frame_number, int(ratio), 0.5)
     return [strided_deferred_plane(a, c, int(ratio), settings.render_size) for a in planes]
 

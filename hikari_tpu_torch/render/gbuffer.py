@@ -12,6 +12,7 @@ import torch
 
 from hikari_tpu_torch.config import DISTANCE_MAX, RenderSettings, Taa, UpscaleMode
 from hikari_tpu_torch.render.camera import Camera
+from hikari_tpu_torch.render.stops import pass_sum
 from hikari_tpu_torch.render.types import GBuffer
 from hikari_tpu_torch.scene.buffers import SceneBuffers
 from hikari_tpu_torch.trace.api import hit_info, trace_rays
@@ -23,6 +24,24 @@ def frame_jitter(frame_number: int, smaa_tu4x: bool) -> np.ndarray:
     indexed by frame & 15 (halved under SMAA TU4x)."""
     index = ((frame_number >> 1) if smaa_tu4x else frame_number) & 15
     return HALTON_JITTER[index]
+
+
+def _truncated(acc, size, device) -> GBuffer:
+    """The G-buffer of a frame cut inside the prepass (``stop_after``
+    ``gbuffer:trace``/``gbuffer:hitinfo``): every float plane holds
+    ``acc``, the ids are 0 (JAX ``gbuffer.py`` ``_trunc``)."""
+    h, w = size
+    z3 = torch.zeros((h, w, 3), device=device) + acc
+    z2 = torch.zeros((h, w), device=device) + acc
+    ids = torch.zeros((h, w), dtype=torch.int32, device=device)
+    return GBuffer(
+        position=torch.cat([z3, z2[..., None]], dim=-1),
+        normal=z3,
+        depth_gradient=torch.stack([z2, z2], dim=-1),
+        instance=ids,
+        material=ids,
+        velocity_uv=torch.cat([z3, z2[..., None]], dim=-1),
+    )
 
 
 def render_gbuffer(
@@ -49,7 +68,11 @@ def render_gbuffer(
         bruteforce_max_tris=settings.bruteforce_max_tris,
         max_steps=settings.max_traversal_steps,
     )
+    if settings.stop_after == "gbuffer:trace":
+        return _truncated(pass_sum(hit), size, origin.device)
     info = hit_info(scene, origin, direction, hit)
+    if settings.stop_after == "gbuffer:hitinfo":
+        return _truncated(pass_sum(hit, info), size, origin.device)
 
     miss = hit.prim < 0
     world_pos = info.position[..., :3]

@@ -50,6 +50,7 @@ from hikari_tpu_torch.render.sampling import (
     sample_cosine_hemisphere,
     select_light_candidate,
 )
+from hikari_tpu_torch.render.stops import channel_sum
 from hikari_tpu_torch.render.types import GBuffer
 from hikari_tpu_torch.scene.buffers import SceneBuffers
 from hikari_tpu_torch.trace.api import hit_info, occlude_hit_info, trace_rays
@@ -123,20 +124,43 @@ def _render_uv(render_size, device):
 
 def fetch_gbuffer_deferred(gb: GBuffer, frame_number: int, settings, amount: float = 0.25) -> GBuffer:
     """Nearest full-res G-buffer sample at every render pixel's jittered
-    deferred uv (light.wgsl:1007-1017): for an integer upscale ratio, a
-    strided view. The float planes pass the ``gb_fetch`` gradient
-    firewall. Fractional ratios (FSR1) are not ported yet."""
+    deferred uv (light.wgsl:1007-1017): for an integer upscale ratio a
+    strided view, whose float planes pass the ``gb_fetch`` gradient
+    firewall; for a fractional one (FSR1) a gather at the deferred
+    coordinates (``fetch_gbuffer``)."""
     ratio = settings.upscale_ratio
     if not float(ratio).is_integer():
-        raise NotImplementedError(
-            f"upscale ratio {ratio}: the deferred gather fetch is not ported yet"
+        duv = jittered_deferred_uv(
+            _render_uv(settings.render_size, gb.position.device), frame_number,
+            settings.output_size, ratio, amount,
         )
+        dy, dx = uv_to_coords(duv, settings.output_size)
+        return fetch_gbuffer(gb, dy, dx)
     Ri = int(ratio)
     c = _deferred_phase(frame_number, Ri, amount)
 
     def f(a):
         out = strided_deferred_plane(a, c, Ri, settings.render_size)
         return clip_gradient(out, 1e4, "gb_fetch") if out.is_floating_point() else out
+
+    return GBuffer(
+        position=f(gb.position),
+        normal=f(gb.normal),
+        depth_gradient=f(gb.depth_gradient),
+        instance=f(gb.instance),
+        material=f(gb.material),
+        velocity_uv=f(gb.velocity_uv),
+    )
+
+
+def fetch_gbuffer(gb: GBuffer, y, x) -> GBuffer:
+    """The G-buffer at integer grids y/x; the float planes pass the
+    ``gb_gather`` gradient firewall, which bounds and NaN-scrubs the
+    cotangents flowing back into the G-buffer from the lighting chains."""
+
+    def f(a):
+        out = gather_pixels(a, y, x)
+        return clip_gradient(out, 1e4, "gb_gather") if out.is_floating_point() else out
 
     return GBuffer(
         position=f(gb.position),
@@ -179,6 +203,17 @@ def scatter_invalidate(grid: Reservoir, prev_uv, mask, render_size) -> Reservoir
     )
     invalidated = (keep < 0.5).reshape(rh, rw)
     return Reservoir.zeros(render_size, prev_uv.device).select(invalidated, grid)
+
+
+def _channel_cut(acc, render_size, device, temporal, spatial):
+    """A light channel cut by ``stop_after`` (JAX ``light.py`` ``_trunc``):
+    radiance and variance hold ``acc``, no pixel is background, and the
+    reservoirs pass through."""
+    rh, rw = render_size
+    out3 = torch.zeros((rh, rw, 3), device=device) + acc
+    var = torch.zeros((rh, rw), device=device) + acc
+    bgd = torch.zeros((rh, rw), dtype=torch.bool, device=device)
+    return out3, var, temporal, spatial, bgd, temporal
 
 
 def channel_random(noise_bank, frame_number: int, render_size):
@@ -261,13 +296,28 @@ def direct_lit_pass(
     background = g.position[..., 3] < F32_EPSILON
     position = g.position[..., :3]
     normal = g.normal
-    s = _primary_sample(g, channel_random(noise_bank, frame_number, render_size), normal)
+    rand = channel_random(noise_bank, frame_number, render_size)
+    # settings.stop_after "<channel>:<stage>" cuts this channel after
+    # <stage> (render/stops.py).
+    chan = "emissive" if emissive_lit else "direct"
+
+    def stopped(stage):
+        return settings.stop_after == f"{chan}:{stage}"
+
+    def cut(spatial, *trees):
+        return _channel_cut(channel_sum(*trees), render_size, dev, temporal, spatial)
+
+    if stopped("fetch"):
+        return cut(de_spatial_prev, g, rand, duv)
+    s = _primary_sample(g, rand, normal)
 
     # Temporal reprojection + geometric validation.
     previous_uv = duv - g.velocity_uv[..., :2]
     r = load_previous_reservoir(temporal, previous_uv, render_size)
     r, reproj_ok = check_previous_reservoir(r, s)
     de_spatial_prev = scatter_invalidate(de_spatial_prev, previous_uv, ~reproj_ok, render_size)
+    if stopped("reproject"):
+        return cut(de_spatial_prev, g, rand, r, de_spatial_prev)
 
     trace_kw = dict(
         method=settings.tracer,
@@ -281,6 +331,19 @@ def direct_lit_pass(
             g.instance, settings.solar_angle, sample_emissive=emissive_lit,
             trace_method=settings.tracer,
         )
+
+    if stopped("candidate") or stopped("trace"):
+        candidate, info = candidate_for(s)
+        if stopped("candidate"):
+            return cut(de_spatial_prev, g, r, candidate, info)
+        hit = trace_rays(
+            scene, position + normal * RAY_BIAS, candidate.direction,
+            max_distance=candidate.max_distance,
+            early_distance=candidate.min_distance,
+            exclude_instance=candidate.emissive_instance,
+            **trace_kw,
+        )
+        return cut(de_spatial_prev, g, r, candidate, info, hit)
 
     def shadow_trace(ray_origin, ray_dir, candidate, trace_condition, info):
         """Trace the shadow ray + classify radiance (masked)."""
@@ -354,6 +417,8 @@ def direct_lit_pass(
     else:
         r = sampling_branch(r, torch.ones((rh, rw), dtype=torch.bool, device=dev))
         sp_after = de_spatial_prev
+    if stopped("restir"):
+        return cut(de_spatial_prev, g, r, sp_after)
 
     # Finalize W, refresh visible surface, lifetime++ (light.wgsl:1216-1227).
     r = finalize_w(r, luminance(r.s.radiance[..., :3]))
@@ -419,6 +484,15 @@ def indirect_lit_pass(
     position = g.position[..., :3]
     normal = safe_normalize(torch.where(background[..., None], 1.0, g.normal))
     rand = channel_random(noise_bank, frame_number, render_size)
+
+    def stopped(stage):  # settings.stop_after "indirect:<stage>"
+        return settings.stop_after == f"indirect:{stage}"
+
+    def cut(spatial, *trees):
+        return _channel_cut(channel_sum(*trees), render_size, dev, temporal, spatial)
+
+    if stopped("fetch"):
+        return cut(spatial_prev, g, rand)
     s = _primary_sample(g, rand, g.normal)
 
     trace_kw = dict(
@@ -443,6 +517,8 @@ def indirect_lit_pass(
         ray_origin = bounce_pos + bounce_normal * RAY_BIAS
         hit = trace_rays(scene, ray_origin, ray_dir, **trace_kw)
         info = hit_info(scene, ray_origin, ray_dir, hit)
+        if stopped("bounce"):
+            return cut(spatial_prev, g, hit, info)
         if n == 0:
             first_pdf = pdf
             first_sample_position = info.position
@@ -472,6 +548,8 @@ def indirect_lit_pass(
             **trace_kw,
         )
         cinfo2 = occlude_hit_info(nee_origin, candidate.direction, nee_hit, cinfo)
+        if stopped("nee"):
+            return cut(spatial_prev, g, hit, info, candidate, cinfo2)
         in_rad = input_radiance(
             scene, candidate.direction, cinfo2, sample_directional,
             candidate.emissive_instance, False, settings.solar_angle,
@@ -539,6 +617,8 @@ def indirect_lit_pass(
         0.0,
     )
     r = temporal_restir(r, s, w_new, settings.max_temporal_reuse_count)
+    if stopped("restir"):
+        return cut(spatial_prev, g, r, spatial_prev)
 
     out_radiance = shading(
         view,

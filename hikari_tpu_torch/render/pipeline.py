@@ -4,11 +4,15 @@
 
 The frame goes G-buffer -> albedo -> direct (sun) -> emissive (+ spatial
 reuse) -> indirect (+ spatial reuse) -> denoise x3 -> tone mapping ->
-SMAA TU4x -> TAA -> overlay (reference render graph PREPASS -> LIGHT ->
-POST_PROCESS -> OVERLAY, src/lib.rs:332-365).
+SMAA TU4x or FSR1 -> TAA -> overlay (HDR inverse Reinhard, bloom, FXAA,
+the NaN -> albedo fallback) (reference render graph PREPASS -> LIGHT ->
+POST_PROCESS -> OVERLAY, src/lib.rs:332-365). ``settings.stop_after``
+cuts the frame after a stage (``render/stops.py``).
 
-``render_frame`` raises NotImplementedError for HDR, bloom, FXAA, FSR1
-and the profiling truncations, which are not ported yet.
+Where the JAX package fails on a setting (FSR1 under TAA Jasmine, SMAA
+TU4x at a fractional ratio, bloom on a mip with an odd side), the port
+raises ValueError naming the JAX line instead of rendering a frame the
+reference does not define.
 """
 
 from __future__ import annotations
@@ -17,17 +21,22 @@ import torch
 
 from hikari_tpu_torch.config import RenderSettings, Taa, UpscaleMode
 from hikari_tpu_torch.diff import clip_gradient
+from hikari_tpu_torch.render.bloom import bloom as bloom_pass
+from hikari_tpu_torch.render.bloom import mip_sizes
 from hikari_tpu_torch.render.camera import Camera
 from hikari_tpu_torch.render.denoise import deferred_planes, denoise_channel
 from hikari_tpu_torch.render.filters import nearest_sample
+from hikari_tpu_torch.render.fsr import fsr_upscale
+from hikari_tpu_torch.render.fxaa import fxaa as fxaa_pass
 from hikari_tpu_torch.render.gbuffer import render_gbuffer
 from hikari_tpu_torch.render.light import direct_lit_pass, full_screen_albedo, indirect_lit_pass
 from hikari_tpu_torch.render.noise import blue_noise_bank
 from hikari_tpu_torch.render.restir import Reservoir, compress_reservoir, decompress_reservoir
 from hikari_tpu_torch.render.smaa import smaa_tu4x
 from hikari_tpu_torch.render.spatial import spatial_reuse_pass
+from hikari_tpu_torch.render.stops import check_stop, prefix_sum
 from hikari_tpu_torch.render.taa import taa_jasmine
-from hikari_tpu_torch.render.tonemap import tone_mapping
+from hikari_tpu_torch.render.tonemap import inverse_reinhard_luminance, tone_mapping
 from hikari_tpu_torch.render.types import FrameState, GBuffer, RenderOutputs
 from hikari_tpu_torch.scene.buffers import SceneBuffers
 from hikari_tpu_torch.utils import luminance, map_tensors, resolve_device, uv_grid
@@ -51,21 +60,26 @@ def noise_bank_on(device) -> torch.Tensor:
     return _noise_banks[key]
 
 
-def check_supported(settings: RenderSettings) -> None:
-    """Raise NotImplementedError for a setting this port does not cover
-    yet: it never skips one in silence."""
-    missing = []
+def image_size(settings: RenderSettings):
+    """(h, w) of the frame's image: twice the render size under SMAA TU4x,
+    the output size under FSR1, else the render size."""
+    rh, rw = settings.render_size
+    if settings.upscale.mode == UpscaleMode.SMAA_TU4X:
+        return 2 * rh, 2 * rw
     if settings.upscale.mode == UpscaleMode.FSR1:
-        missing.append(f"upscale={settings.upscale.mode.value}")
-    for flag in ("hdr", "bloom", "fxaa"):
-        if getattr(settings, flag):
-            missing.append(flag)
-    if settings.stop_after is not None:
-        missing.append(f"stop_after={settings.stop_after!r}")
-    if missing:
-        raise NotImplementedError(
-            "not ported yet (see ROADMAP.md queue 1): " + ", ".join(missing)
-        )
+        return settings.output_size
+    return rh, rw
+
+
+def check_supported(settings: RenderSettings) -> None:
+    """Raise ValueError for a setting neither package defines: a
+    ``stop_after`` that is no stop point, bloom on an image whose mip chain
+    has an odd side (``render/bloom.py``). The reference faults that a
+    frame meets later (FSR1 under TAA Jasmine, SMAA TU4x at a fractional
+    ratio) raise where the JAX package fails."""
+    check_stop(settings.stop_after)
+    if settings.bloom and settings.stop_after is None:
+        mip_sizes(image_size(settings))
 
 
 def _albedo_at_render_res(albedo, settings: RenderSettings, frame_number: int):
@@ -82,6 +96,24 @@ def _firewall(out, name):
     )
 
 
+def _truncated(state_in: FrameState, device, *trees):
+    """A frame cut by ``stop_after`` (JAX ``pipeline.py`` ``_truncate``):
+    every output is a (4, 4, 4) image holding the sum of the float leaves
+    computed so far, and the input state is carried with its frame number
+    advanced."""
+    img = torch.zeros((4, 4, 4), device=device) + prefix_sum(*trees)
+    out = RenderOutputs(image=img, albedo=img, direct=img, emissive=img, indirect=img,
+                        tonemapped=img, stats=None)
+    return out, state_in.replace(frame_number=int(state_in.frame_number) + 1)
+
+
+def _mirrored_fault(what, where, error):
+    return ValueError(
+        f"{what}: the JAX package fails here ({where}: {error}), so the port does not define "
+        f"this frame"
+    )
+
+
 def render_frame(
     scene: SceneBuffers,
     camera: Camera,
@@ -95,12 +127,21 @@ def render_frame(
     if noise_bank is None:
         noise_bank = noise_bank_on(dev)
     frame_number = int(state.frame_number)
+    state_in = state
+    stop = settings.stop_after or ""
+
+    def cut(*trees):
+        return _truncated(state_in, dev, *trees)
 
     if settings.reservoir_f16:
         state = state.replace(**{k: decompress_reservoir(getattr(state, k)) for k in _RESERVOIRS})
 
     gbuffer = _firewall(render_gbuffer(scene, camera, frame_number, settings), "prepass")
+    if stop == "gbuffer" or stop.startswith("gbuffer:"):
+        return cut(gbuffer)
     albedo = _firewall(full_screen_albedo(scene, camera, gbuffer), "albedo")
+    if stop == "albedo":
+        return cut(gbuffer, albedo)
 
     direct_out, direct_var, direct_temporal, de_spatial, bg, _ = _firewall(
         direct_lit_pass(
@@ -109,6 +150,8 @@ def render_frame(
         ),
         "direct_lit",
     )
+    if stop == "direct" or stop.startswith("direct:"):
+        return cut(gbuffer, albedo, direct_out, direct_var, de_spatial)
 
     rh, rw = settings.render_size
     if settings.emissive_lit and scene.num_emissives > 0:
@@ -119,6 +162,10 @@ def render_frame(
             ),
             "emissive_lit",
         )
+        # "emissive:<stage>" stops inside the emissive pass, before spatial
+        # reuse; plain "emissive" after it.
+        if stop.startswith("emissive:"):
+            return cut(gbuffer, albedo, direct_out, em_out, em_var, de_spatial)
         if settings.emissive_spatial_reuse:
             em_out, em_var, de_spatial = _firewall(
                 spatial_reuse_pass(scene, camera, gbuffer, em_temporal, de_spatial, em_var,
@@ -129,6 +176,8 @@ def render_frame(
         em_out = torch.zeros((rh, rw, 3), device=dev)
         em_var = torch.zeros((rh, rw), device=dev)
         em_temporal = state.emissive_temporal
+    if stop == "emissive":
+        return cut(gbuffer, albedo, direct_out, em_out, em_var, de_spatial)
 
     indirect_spatial = state.indirect_spatial
     if settings.indirect_bounces > 0:
@@ -139,6 +188,9 @@ def render_frame(
             ),
             "indirect_lit",
         )
+        if stop.startswith("indirect:"):
+            # Before spatial reuse, so the delta prices the channel alone.
+            return cut(gbuffer, albedo, direct_out, em_out, ind_out)
         if settings.indirect_spatial_reuse:
             ind_out, ind_var, indirect_spatial = _firewall(
                 spatial_reuse_pass(scene, camera, gbuffer, ind_temporal, indirect_spatial,
@@ -149,6 +201,8 @@ def render_frame(
         ind_out = torch.zeros((rh, rw, 3), device=dev)
         ind_var = torch.zeros((rh, rw), device=dev)
         ind_temporal = state.indirect_temporal
+    if stop == "indirect" or stop.startswith("indirect:"):
+        return cut(gbuffer, albedo, direct_out, em_out, ind_out, ind_var, indirect_spatial)
 
     # ---- POST PROCESS ----
     if settings.denoise:
@@ -164,6 +218,8 @@ def render_frame(
         )
     else:
         direct_d, em_d, ind_d = direct_out, em_out, ind_out
+    if stop == "denoise":
+        return cut(gbuffer, albedo, direct_d, em_d, ind_d)
 
     fg = (~bg).to(torch.float32)[..., None]
 
@@ -177,24 +233,56 @@ def render_frame(
         settings.clear_color,
     )
     tonemapped = clip_gradient(tonemapped, 1e4, "tonemap")
+    if stop == "tonemap":
+        return cut(gbuffer, albedo, tonemapped)
 
     current = tonemapped
     prev_upscaled = state.prev_upscaled
     if settings.upscale.mode == UpscaleMode.SMAA_TU4X:
+        if not float(settings.upscale_ratio).is_integer():
+            h, w = settings.output_size
+            raise _mirrored_fault(
+                f"SMAA TU4x at ratio {settings.upscale_ratio}", "hikari_tpu/render/smaa.py:162",
+                f"TypeError: incompatible shapes for broadcasting: ({rh}, {rw}), "
+                f"({h // 2}, {w // 2})",
+            )
         current = smaa_tu4x(current, state.prev_upscaled, gbuffer, state.prev_gbuffer,
-                            frame_number)
+                            frame_number,
+                            stop=stop.split(":", 1)[1] if stop.startswith("smaa:") else None)
         current = clip_gradient(current, 1e4, "smaa")
         prev_upscaled = current
+    if stop == "smaa" or stop.startswith("smaa:"):
+        return cut(gbuffer, albedo, current)
 
     prev_taa = state.prev_taa
     if settings.taa == Taa.JASMINE:
+        if settings.upscale.mode == UpscaleMode.FSR1:
+            raise _mirrored_fault(
+                "FSR1 under TAA Jasmine", "hikari_tpu/render/taa.py:402, _taa_consume",
+                f"TypeError: incompatible shapes for broadcasting: ({rh}, {rw}), "
+                f"{settings.output_size}: TAA runs at the render size, its previous-depth "
+                f"taps at the G-buffer's",
+            )
         current = taa_jasmine(current, state.prev_taa, gbuffer, state.prev_gbuffer,
                               settings.clear_color, settings.upscale_ratio)
         current = clip_gradient(current, 1e4, "taa")
         prev_taa = current
+    if stop == "taa":
+        return cut(gbuffer, albedo, current)
 
-    # ---- OVERLAY: NaN -> albedo fallback (src/shaders/overlay.wgsl:42) ----
+    if settings.upscale.mode == UpscaleMode.FSR1:
+        current = fsr_upscale(current, settings.output_size, settings.upscale.sharpness)
+
+    # ---- OVERLAY: HDR inverse Reinhard (src/shaders/overlay.wgsl:27-46),
+    # the chained bloom and FXAA (src/lib.rs:332-365), and the NaN ->
+    # albedo fallback (overlay.wgsl:42) ----
     image = current
+    if settings.hdr:
+        image = torch.cat([inverse_reinhard_luminance(image[..., :3]), image[..., 3:4]], dim=-1)
+    if settings.bloom:
+        image = bloom_pass(image, settings.bloom_threshold, settings.bloom_intensity)
+    if settings.fxaa:
+        image = fxaa_pass(image)
     nan_mask = torch.isnan(image).any(-1, keepdim=True)
     albedo_out = albedo
     if image.shape[:2] != albedo.shape[:2]:

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from hikari_tpu_torch.render.filters import edge_shift, interleave2x2, pixel_grid, texel
+from hikari_tpu_torch.render.stops import pass_sum
 from hikari_tpu_torch.render.taa import (
     clip_aabb_planes,
     dilation_offsets,
@@ -42,13 +43,23 @@ def smaa_tu4x(
     gbuffer: GBuffer,
     prev_gbuffer: GBuffer,
     frame_number: int,
+    stop=None,
 ):
     """``render`` (h, w, 4): the tonemapped current frame at render res;
     ``prev_upscaled`` (2h, 2w, 4): the previous output; the G-buffers at
-    output res. Returns (2h, 2w, 4)."""
+    output res. Returns (2h, 2w, 4). ``stop`` (a profiling cut, ``velq``,
+    ``gather``, ``clip``, ``remix`` or ``extrap``) returns the output size
+    filled with the sum of what was computed up to that stage (JAX
+    ``smaa.py`` ``_trunc``); ``gather`` falls after the reprojected
+    fetches and the disocclusion tests, where the JAX package's window
+    transport ends."""
     h, w = render.shape[0], render.shape[1]
     oh, ow = 2 * h, 2 * w
     dev = render.device
+
+    def cut(*trees):
+        return torch.zeros((oh, ow, 4), device=dev) + pass_sum(*trees)
+
     even = frame_number % 2 == 0
     j = 1 if even else 0  # the quad slot the previous output fills
 
@@ -63,6 +74,8 @@ def smaa_tu4x(
     sy, sx = dilation_offsets(lambda dy, dx: quad_tap(depth_plane, dy, dx))
     vel = texel(gbuffer.velocity_uv[..., :2], 2 * ys + j + sy, 2 * xs + j + sx)
     vel_x, vel_y = vel[..., 0], vel[..., 1]
+    if stop == "velq":
+        return cut(cur, vel_x, vel_y)
 
     xf, yf = xs.to(torch.float32), ys.to(torch.float32)
     prev_ux = (2.0 * xf + j + 0.5) / ow - vel_x
@@ -127,6 +140,8 @@ def smaa_tu4x(
 
     pvel = at(prev_gbuffer.velocity_uv[..., :2], (0, 1), (0, 1))
     velocity_miss = ((vel_x - pvel[..., 0]) ** 2 + (vel_y - pvel[..., 1]) ** 2) > 0.0001**2
+    if stop == "gather":
+        return cut(prev, depth_miss, instance_miss, velocity_miss)
 
     # Disocclusion -> nearest-depth-biased 2x2 YCoCg clip (smaa.wgsl:159-189):
     # the render-texture gather corners at the winning bias.
@@ -161,6 +176,8 @@ def smaa_tu4x(
     clip_rgb = torch.stack(ycocg_to_rgb_planes(*clipped), dim=-1)
     do_clip = boundary_miss | ((depth_miss | instance_miss) & velocity_miss)
     prev = torch.where(do_clip[..., None], clip_rgb, prev)
+    if stop == "clip":
+        return cut(prev)
 
     # Subpixel-velocity differential remix (smaa.wgsl:186-195): bilinear at
     # the previous quad uv on the render texture, whose corners and
@@ -176,6 +193,8 @@ def smaa_tu4x(
     c11 = edge_shift(cur, base + 1, base + 1)
     remix = (c00 * (1 - fxy) + c10 * fxy) * (1 - fxy) + (c01 * (1 - fxy) + c11 * fxy) * fxy
     prev = prev + (remix - prev) * blend[..., None]
+    if stop == "remix":
+        return cut(prev)
 
     ones = torch.ones((h, w, 1), device=dev)
     cur_rgba = torch.cat([cur, ones], dim=-1)
@@ -209,4 +228,6 @@ def smaa_tu4x(
 
     q10 = diff_blend(t_c, s_c, w_c, b_c)  # out[2y+1, 2x]
     q01 = diff_blend(n_c, b_c, t_c, e_c)  # out[2y, 2x+1]
+    if stop == "extrap":
+        return cut(q00, q01, q10, q11)
     return interleave2x2(q00, q01, q10, q11)

@@ -17,6 +17,14 @@ def reinhard_luminance(color):
     return color * scale[..., None]
 
 
+def inverse_reinhard_luminance(color):
+    """The overlay's HDR path (reference src/shaders/overlay.wgsl:27-31):
+    luminance clipped to [0.0005, 0.995], l_new = l/(1-l)."""
+    l_old = torch.clamp(luminance(color), 0.0005, 0.995)
+    l_new = l_old / (1.0 - l_old)
+    return color * (l_new / torch.clamp(l_old, min=1e-8))[..., None]
+
+
 def tone_mapping(direct, emissive, indirect, clear_color):
     """(rh,rw,4) channels in, (rh,rw,4) out. Alpha sums; background
     (a == 0) becomes the clear color; non-finite radiance is scrubbed to 0

@@ -58,6 +58,20 @@ class Mesh:
         e2 = tri[:, 2] - tri[:, 0]
         return 0.5 * np.abs(np.linalg.norm(np.cross(e1, e2), axis=-1))
 
+    @staticmethod
+    def from_triangle_strip(positions, normals, uvs, strip_indices=None) -> "Mesh":
+        """Triangle-strip topology with alternating winding (reference
+        src/mesh_material/mod.rs:430-448)."""
+        positions = np.asarray(positions, dtype=np.float32).reshape(-1, 3)
+        if strip_indices is None:
+            strip_indices = np.arange(len(positions), dtype=np.int32)
+        s = np.asarray(strip_indices, dtype=np.int32)
+        tris = [
+            [s[i], s[i + 1], s[i + 2]] if i % 2 == 0 else [s[i + 1], s[i], s[i + 2]]
+            for i in range(len(s) - 2)
+        ]
+        return Mesh(positions, normals, uvs, np.array(tris, dtype=np.int32))
+
 
 def transform_points(m: np.ndarray, p: np.ndarray) -> np.ndarray:
     """Apply 4x4 affine transform to (N,3) points."""

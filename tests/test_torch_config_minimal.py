@@ -34,9 +34,10 @@ torch.set_num_threads(2)
 H, W = 48, 63
 
 
-def config_world(name, h=H, w=W):
-    """Both packages' config at h x w without the post chain, the JAX
-    states after 0 and 1 frames and the JAX outputs of frames 0 and 1."""
+def config_world(name, h=H, w=W, **overrides):
+    """Both packages' config at h x w without the post chain (and with
+    ``overrides``), the JAX states after 0 and 1 frames and the JAX
+    outputs of frames 0 and 1."""
     from hikari_tpu.io import scenes as jscenes
     from hikari_tpu.render.pipeline import initial_state, render_frame_jit
     from hikari_tpu.scene.buffers import to_device as jax_to_device
@@ -46,7 +47,7 @@ def config_world(name, h=H, w=W):
 
     jscene, jcam, js = jscenes.CONFIGS[name](w, h)
     _, tcam, ts = tscenes.CONFIGS[name](w, h, device="cpu")
-    post = dict(denoise=False, collect_stats=True, remat=False)
+    post = dict(denoise=False, collect_stats=True, remat=False, **overrides)
     js = js.replace(upscale=jc.Upscale.none(), taa=jc.Taa.NONE, **post)
     ts = ts.replace(upscale=tc.Upscale.none(), taa=tc.Taa.NONE, **post)
     arrays = compile_scene(jscene)

@@ -154,15 +154,22 @@ def test_config_compiles_like_jax(monkeypatch, name):
 
 
 def test_scene_config_with_asset_raises(tmp_path):
-    """With the FlightHelmet glTF present, ``scene_config`` names the
-    ROADMAP item that ports glTF loading instead of rendering a stand-in."""
+    """With the FlightHelmet glTF present, ``scene_config`` loads it (a
+    small textured glTF written into ``tmp_path``); an incomplete asset
+    (a glTF without its scene) falls back to the procedural stand-in, as
+    the JAX package's ``gltf_scene`` does on ``KeyError``."""
     from hikari_tpu_torch.io import scenes
+    from hikari_tpu_torch.io.gltf import write_textured_demo
 
-    gltf = tmp_path / scenes.FLIGHT_HELMET
-    gltf.parent.mkdir(parents=True)
-    gltf.write_text("{}")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5, 'Large-scene leftovers'"):
-        scenes.scene_config(device="cpu", assets=str(tmp_path))
+    write_textured_demo(str(tmp_path / scenes.FLIGHT_HELMET))
+    scene, _, settings = scenes.scene_config(device="cpu", assets=str(tmp_path))
+    assert len(scene.textures) == 4 and len(scene.instances) == 3
+    assert settings.indirect_spatial_reuse and settings.emissive_spatial_reuse
+    broken = tmp_path / "broken"
+    (broken / scenes.FLIGHT_HELMET).parent.mkdir(parents=True)
+    (broken / scenes.FLIGHT_HELMET).write_text("{}")
+    stand_in, _, _ = scenes.scene_config(device="cpu", assets=str(broken))
+    assert not stand_in.textures and len(stand_in.instances) == 8
 
 
 def test_render_entry_point(tmp_path):
