@@ -90,8 +90,30 @@ Phases, each reported on its own line:
      scene --assets DIR`` at 512x512 on a small textured glTF written into
      a temporary asset directory, against the untextured stand-in; the
      card against the CPU twins on that scene at 48x62, frames 2-3.
-  Each of 8-10 sets the counts to 0 just before each run and requires
-  every trace to go through the closest-hit kernel.
+  11. dynamic scenes (after 4's [check]). [dynamic]: (a)
+     ``cornell_dynamic``, 8 frames of the bench frame's settings with both
+     spatial reuses and ``reproject="adaptive"`` (1920x1080 from 960x540)
+     under an orbiting camera while ``scene.SceneUpdater`` turns and moves
+     the tall box every frame after the first, moves the light at frame 4
+     (0-based; its alias rows stay) and scales it at frame 6 (they are
+     rebuilt): ms/frame (update +
+     render), the updates' host ms and ``update_transforms``' device ms,
+     peak memory, non-finite pixels (must be 0), mean luminance (must be
+     > 0), trace calls = closest-hit launches, the largest |velocity| on
+     the box (must be > 0), the share of pixels whose temporal count did
+     not fall (must be > 0.5 every frame), the unmoved instances' static
+     snap; then the card against the CPU twins on the same path at 48x64,
+     frames 0-3. (b) ``city_stream``: ``examples/render city --stream
+     --frames 16 --size 512`` (trace calls = tile-walk launches, finite and
+     lit), ``update_activity``'s device ms on the full city, and the small
+     city with every other instance inactive through the tile walk against
+     its twin and against a compile without those instances. (c)
+     ``update_transforms`` on the card against the CPU on the city with
+     10% of its instances moved. (d) ``trace_rays(method="bvh")`` against
+     the closest-hit kernel on the moved cornell (1080p primary rays) and
+     against the tile walk on a moved small city (256x256), ties counted.
+  Each of 8-11 sets the counts to 0 just before each run and requires
+  every trace of its main paths to go through the kernel of that path.
 Every kernel case has a tie case: one triangle duplicated at prims 1, 4 and
 8 (for the tile walk, 1 and 4 of one cluster and the next cluster's row
 8), where the JAX kernels' per-sublane rule keeps the sublane-0 prim and
@@ -106,7 +128,8 @@ larger grids, reps 0 and each index mode; their [time] lines give the
 launch floor (an empty kernel of the same grid) and torch.gather at the
 single gathers.
 ``--profile`` adds a torch.profiler breakdown of two more frames of each
-main path, and of two fwd+grad frames of ``cornell_bench`` (device time of
+main path (``cornell_dynamic``'s with their moves), and of two fwd+grad
+frames of ``cornell_bench`` (device time of
 the forward against the backward's autograd nodes). The second-to-last
 lines are the kernel table as JSON and the
 card's nvidia-smi name/power limit; the last line is the result JSON. Any
@@ -168,6 +191,41 @@ GRAD_CHECKS = (
     ("cornell temporal only, f32 reservoirs",
      lambda s: grad_small_settings(s, 63, 48, bench=False)),
     ("cornell bench settings", lambda s: grad_small_settings(s, 62, 48, bench=True)),
+)
+
+# [dynamic]: cornell_dynamic's camera orbits (0, 1, 0) at the config's
+# radius of 4, 0.5 degrees a frame; from frame 1 each frame turns the tall
+# box (instance 7) 2 degrees about y and moves it 0.01 along x; frame 4
+# moves the light quad (instance 5) 0.02 along x (its alias rows stay),
+# frame 6 scales it by 1.1 (its rows are rebuilt).
+DYN_ORBIT_DEG = 0.5
+DYN_BOX, DYN_LIGHT = 7, 5
+DYN_BOX_TURN_DEG, DYN_BOX_STEP = 2.0, 0.01
+DYN_LIGHT_MOVE_FRAME, DYN_LIGHT_MOVE = 4, 0.02
+DYN_LIGHT_SCALE_FRAME, DYN_LIGHT_SCALE = 6, 1.1
+DYN_SMALL_HW = (48, 64)
+DYN_CHECK_FRAMES = (0, 1, 2, 3)
+# A static instance keeps exactly zero object motion while its
+# prev_model @ inv(model) lies within this of I (render/gbuffer.py).
+STATIC_SNAP = 1e-6
+# city_stream: examples/render city --stream at the config's full size.
+STREAM_FRAMES, STREAM_SIZE = 16, 512
+# [dynamic] (c): the card's update_transforms against the CPU's, each
+# written field within this share of the field's largest magnitude (an
+# absolute bound would sit near one f32 ulp at the city's coordinates).
+DYN_UPDATE_REL = 1e-5
+DYN_CITY_MOVED = 0.1
+# Two searches of one scene agree on a ray's hit where the prims are
+# equal; where they differ and both t lie within this relative distance,
+# the ray met two triangles at one distance (a tie, counted). The bvh
+# walk computes t by Moller-Trumbore, the kernels by the plane form.
+TIE_REL = 1e-5
+# Every field update_transforms writes.
+UPDATE_FIELDS = (
+    "tri_world", "tri_n", "tri_eu", "tri_ev", "tri_cn", "tri_cu", "tri_cv", "tri_valid",
+    "vert_normal", "node_min", "node_max", "inst_min", "inst_max", "inst_model",
+    "inst_prev_model", "inst_inv_model", "em_position", "em_radius", "em_surface_area",
+    "enode_min", "enode_max",
 )
 
 
@@ -472,12 +530,20 @@ def check_small(name, scene_gpu, scene_cpu, cam, settings, device, frames=(0, 1,
             st_gpu = map_tensors(lambda x: x.to(device), st_cpu)
             o_gpu, _ = render_frame(scene_gpu, cam_cpu.to(device), st_gpu, settings)
             o_cpu, st_cpu = render_frame(scene_cpu, cam_cpu, st_cpu, settings)
-            diff = (o_gpu.image.cpu() - o_cpu.image).abs().amax(-1)
-            share = float((diff <= 1e-3).to(torch.float32).mean())
-            if share < 0.99:
-                raise AssertionError(f"{name} frame {frame}: only {share:.4f} of pixels within 1e-3")
-            log(f"[check] {name} {settings.width}x{settings.height} frame {frame}: card vs CPU "
-                f"twin, {share:.4f} of pixels within 1e-3, max |diff| {float(diff.max()):.3g}")
+            check_frame(name, settings, frame, o_gpu.image, o_cpu.image)
+
+
+def check_frame(name, settings, frame, img_gpu, img_cpu):
+    """Fail unless >= 99% of the card's pixels lie within 1e-3 of the CPU
+    twin's."""
+    import torch
+
+    diff = (img_gpu.cpu() - img_cpu).abs().amax(-1)
+    share = float((diff <= 1e-3).to(torch.float32).mean())
+    if share < 0.99:
+        raise AssertionError(f"{name} frame {frame}: only {share:.4f} of pixels within 1e-3")
+    log(f"[check] {name} {settings.width}x{settings.height} frame {frame}: card vs CPU "
+        f"twin, {share:.4f} of pixels within 1e-3, max |diff| {float(diff.max()):.3g}")
 
 
 def profile_frames(name, advance, state, frames=2, top=12):
@@ -1330,6 +1396,405 @@ def run_textured_phase(device):
     return launches
 
 
+def dynamic_settings(settings, width, height):
+    """``cornell_dynamic``'s settings: ``bench_config("cornell")``'s (SMAA
+    TU4x at 2, TAA Jasmine, denoise, one bounce, f16 reservoirs,
+    ``emissive_lit``) at the given output size with both spatial reuses on
+    and ``reproject="adaptive"`` (the JAX package's ``"shift"`` promises
+    zero velocity; the port always gathers)."""
+    return settings.replace(
+        width=width, height=height, indirect_spatial_reuse=True, emissive_spatial_reuse=True,
+        reservoir_f16=True, emissive_lit=True, reproject="adaptive", collect_stats=True,
+        tracer="auto",
+    )
+
+
+def orbit_camera(frame, device, x0=0.0):
+    """Frame ``frame``'s camera on the orbit about (x0, 1, 0), its previous
+    eye the frame before's (frame 0's is its own)."""
+    import math
+
+    from hikari_tpu_torch.render.camera import Camera
+
+    def eye(f):
+        a = math.radians(DYN_ORBIT_DEG * f)
+        return (x0 + 4.0 * math.sin(a), 1.0, 4.0 * math.cos(a))
+
+    target = (x0, 1.0, 0.0)
+    return Camera.from_lookat(eye=eye(frame), target=target, prev_eye=eye(max(frame - 1, 0)),
+                              prev_target=target, device=device)
+
+
+def dynamic_moves(frame, models):
+    """The (I, 4, 4) transforms after frame ``frame``'s moves."""
+    import math
+
+    import numpy as np
+
+    m = np.array(models, dtype=np.float32)
+    a = math.radians(DYN_BOX_TURN_DEG)
+    turn = np.eye(4, dtype=np.float32)
+    turn[[0, 0, 2, 2], [0, 2, 0, 2]] = (math.cos(a), math.sin(a), -math.sin(a), math.cos(a))
+    m[DYN_BOX] = m[DYN_BOX] @ turn
+    m[DYN_BOX, 0, 3] += DYN_BOX_STEP
+    if frame == DYN_LIGHT_MOVE_FRAME:
+        m[DYN_LIGHT, 0, 3] += DYN_LIGHT_MOVE
+    if frame == DYN_LIGHT_SCALE_FRAME:
+        m[DYN_LIGHT, :3, :3] *= DYN_LIGHT_SCALE
+    return m
+
+
+def static_snap(scene, moved):
+    """Fail unless every instance outside ``moved`` keeps
+    ``prev_model @ inv(model)`` within ``STATIC_SNAP`` of I (so its object
+    motion snaps to exactly 0). Returns the largest deviation."""
+    import torch
+
+    pfc = scene.inst_prev_model @ scene.inst_inv_model
+    dev = (pfc - torch.eye(4, device=pfc.device)).abs().amax((1, 2))
+    keep = torch.ones_like(dev, dtype=torch.bool)
+    keep[list(moved)] = False
+    worst = float(dev[keep].max())
+    if not worst < STATIC_SNAP:
+        raise AssertionError(f"[dynamic] an unmoved instance leaves the static snap: "
+                             f"|prev @ inv(model) - I| = {worst}")
+    return worst
+
+
+def hits_agree(label, got, want, map_prim=None):
+    """``got`` against ``want`` (two searches of one scene): prims equal
+    apart from ties (prims differ, both t within ``TIE_REL``); any other
+    difference fails. Returns (ties, max |t| error where prims agree)."""
+    import torch
+
+    pw = want.prim if map_prim is None else map_prim(want.prim)
+    differ = got.prim != pw
+    scale = torch.clamp(torch.maximum(got.t.abs(), want.t.abs()), min=1.0)
+    close = (got.t - want.t).abs() <= TIE_REL * scale
+    both_hit = (got.prim >= 0) & (pw >= 0)
+    ties = int((differ & both_hit & close).sum())
+    other = int((differ & ~(both_hit & close)).sum())
+    same = ~differ
+    err = float((got.t - want.t)[same & (got.prim >= 0)].abs().max()) if bool(same.any()) else 0.0
+    if other:
+        raise AssertionError(f"[dynamic] {label}: {other} rays differ in their hit beyond ties "
+                             f"({ties} ties)")
+    return ties, err
+
+
+def run_cornell_dynamic(arrays, settings, device, profile=False):
+    """[dynamic] (a): ``cornell_dynamic``, ``FRAMES`` frames through
+    ``SceneUpdater`` and ``render_frame`` with the counts set to 0 just
+    before (``profile``: two more frames, moves included, under
+    ``profile_frames``). Returns (final buffers, closest-hit launches)."""
+    import numpy as np
+    import torch
+
+    from hikari_tpu_torch.io.scenes import cornell_box_scene
+    from hikari_tpu_torch.render.pipeline import image_size, initial_state, render_frame
+    from hikari_tpu_torch.scene import SceneUpdater, to_device, update_transforms
+    from hikari_tpu_torch.utils import luminance
+
+    up = SceneUpdater(cornell_box_scene(), to_device(arrays, device))
+    alias0 = (up.buffers.alias_prob.clone(), up.buffers.alias_index.clone())
+    state = initial_state(settings, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    frame_ms, update_ms, survive, snap = [], [], [], 0.0
+    with torch.no_grad():
+        for f in range(FRAMES):
+            cam = orbit_camera(f, device)
+            t0 = time.perf_counter()
+            if f:
+                up.set_transforms(dynamic_moves(f, up.buffers.inst_model.cpu().numpy()))
+                torch.cuda.synchronize()
+                update_ms.append((time.perf_counter() - t0) * 1e3)
+                moved = {DYN_BOX} | ({DYN_LIGHT} if f in (DYN_LIGHT_MOVE_FRAME,
+                                                       DYN_LIGHT_SCALE_FRAME) else set())
+            out, nxt = render_frame(up.buffers, cam, state, settings)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            if f:
+                survive.append(float((nxt.direct_temporal.count.float()
+                                      >= state.direct_temporal.count.float()).float().mean()))
+            state = nxt
+            if f:
+                snap = max(snap, static_snap(up.buffers, moved))
+            kept = (torch.equal(up.buffers.alias_prob, alias0[0])
+                    and torch.equal(up.buffers.alias_index, alias0[1]))
+            if f == DYN_LIGHT_MOVE_FRAME and not kept:
+                raise AssertionError("[dynamic] a translation of the light changed its alias rows")
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    require_k1_only("[dynamic] cornell_dynamic", counts)
+    lin = up._linear_cache[DYN_LIGHT]
+    scaled = up.buffers.inst_model[DYN_LIGHT, :3, :3].cpu().numpy()
+    if not np.array_equal(lin, scaled):
+        raise AssertionError("[dynamic] the light's scale did not rebuild its alias rows")
+    img = out.image
+    if tuple(img.shape) != (*image_size(settings), 4):
+        raise AssertionError(f"[dynamic] image shape {tuple(img.shape)}")
+    nonfinite = int((~torch.isfinite(img)).sum())
+    mean_lum = float(luminance(img[..., :3]).mean())
+    gb = state.prev_gbuffer
+    box = gb.instance == DYN_BOX
+    vmax = float(gb.velocity_uv[..., :2][box].abs().max()) if bool(box.any()) else 0.0
+    if nonfinite or not mean_lum > 0.0 or not vmax > 0.0 or not min(survive) > 0.5:
+        raise AssertionError(f"[dynamic] cornell_dynamic: {nonfinite} non-finite pixels, mean "
+                             f"luminance {mean_lum}, max |velocity| on the box {vmax}, temporal "
+                             f"counts kept per frame {survive}")
+    models = up.buffers.inst_model
+    upd_dev_ms = cuda_time_ms(lambda: update_transforms(up.buffers, models), 20)
+    log(f"[dynamic] cornell_dynamic {settings.width}x{settings.height} from "
+        f"{settings.render_size[1]}x{settings.render_size[0]}, {FRAMES} frames (update + render): "
+        f"ms/frame median(frames 2-{FRAMES}) {np.median(frame_ms[1:]):.2f} (all: "
+        f"{', '.join(f'{m:.1f}' for m in frame_ms)}); set_transforms host ms per frame "
+        f"{', '.join(f'{m:.2f}' for m in update_ms)}; update_transforms device "
+        f"{upd_dev_ms:.4f} ms (CUDA events, 20 calls); peak memory {peak / 2**30:.3f} GiB")
+    log(f"[dynamic] cornell_dynamic: non-finite pixels {nonfinite}, mean luminance "
+        f"{mean_lum:.4f}; trace calls {counts['trace_calls']} = closest-hit launches "
+        f"{counts['closest_hit']}; max |velocity| on the box's {int(box.sum())} pixels {vmax:.6g}; "
+        f"share of pixels whose direct temporal count did not fall, frames 2-{FRAMES}: "
+        f"{', '.join(f'{s:.4f}' for s in survive)}; unmoved instances' largest "
+        f"|prev @ inv(model) - I| {snap:.3g} (< {STATIC_SNAP}); light alias rows kept on the "
+        f"move (frame {DYN_LIGHT_MOVE_FRAME}, 0-based), rebuilt on the scale (frame "
+        f"{DYN_LIGHT_SCALE_FRAME})")
+    if profile:
+        frame = [FRAMES]
+
+        def advance(st):
+            f = frame[0]
+            frame[0] += 1
+            with torch.no_grad():
+                up.set_transforms(dynamic_moves(f, up.buffers.inst_model.cpu().numpy()))
+                return render_frame(up.buffers, orbit_camera(f, device), st, settings)[1]
+
+        profile_frames("cornell_dynamic", advance, state)
+    return up.buffers, counts["closest_hit"]
+
+
+def check_dynamic_small(arrays, bench, device):
+    """[dynamic] (a): the card against the CPU twins on ``cornell_dynamic``'s
+    scene, camera path and moves at 48x64 (camera ``OUTPUT_SMALL_EYE_X`` to
+    the side), each side updating its own buffers, frames 0-3 each from
+    the CPU's state."""
+    import torch
+
+    from hikari_tpu_torch.render.pipeline import initial_state, render_frame
+    from hikari_tpu_torch.scene import to_device, update_transforms
+    from hikari_tpu_torch.utils import map_tensors
+
+    settings = dynamic_settings(bench, DYN_SMALL_HW[1], DYN_SMALL_HW[0])
+    gpu, cpu = to_device(arrays, device), to_device(arrays, "cpu")
+    st_cpu = initial_state(settings, "cpu")
+    with torch.no_grad():
+        for f in DYN_CHECK_FRAMES:
+            if f:
+                models = dynamic_moves(f, cpu.inst_model.numpy())
+                gpu, cpu = update_transforms(gpu, models), update_transforms(cpu, models)
+            cam = orbit_camera(f, "cpu", OUTPUT_SMALL_EYE_X)
+            st_gpu = map_tensors(lambda x: x.to(device), st_cpu)
+            o_gpu, _ = render_frame(gpu, cam.to(device), st_gpu, settings)
+            o_cpu, st_cpu = render_frame(cpu, cam, st_cpu, settings)
+            check_frame("cornell_dynamic", settings, f, o_gpu.image, o_cpu.image)
+
+
+def run_city_stream(city, small_arrays, small_scene, city_cam, device):
+    """[dynamic] (b): ``examples/render city --stream`` on the card with the
+    counts set to 0 just before (every trace through the tile walk); the
+    device time of ``update_activity`` on the full city; the half-inactive
+    small city through the tile walk against its twin and against a scene
+    compiled without those instances. Returns the tile-walk launches."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hikari_tpu_torch.config import DISTANCE_MAX
+    from hikari_tpu_torch.examples import render
+    from hikari_tpu_torch.scene import compile_scene, to_device, update_activity
+    from hikari_tpu_torch.trace import api
+    from hikari_tpu_torch.trace import tile_walk as tw
+    from hikari_tpu_torch.utils import luminance
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()
+        res = render.main(["city", "--stream", "--frames", str(STREAM_FRAMES), "--size",
+                           str(STREAM_SIZE), "--out", f"{tmp}/city_stream.png"])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated(device)
+    if not (counts["trace_calls"] > 0 and counts["tile_walk"] == counts["trace_calls"]
+            and counts["closest_hit"] == counts["scatter_items"] == 0):
+        raise AssertionError(f"[dynamic] city_stream: launches {counts}")
+    img = res["outputs"].image
+    nonfinite = int((~torch.isfinite(img)).sum())
+    mean_lum = float(luminance(img[..., :3]).mean())
+    if nonfinite or not mean_lum > 0.0:
+        raise AssertionError(f"[dynamic] city_stream: {nonfinite} non-finite pixels, mean "
+                             f"luminance {mean_lum}")
+    active = [int(m.sum()) for m in res["masks"]]
+    half = np.ones(city.num_instances, dtype=bool)
+    half[1::2] = False
+    act_ms = cuda_time_ms(lambda: update_activity(city, half), 5)
+    log(f"[dynamic] city_stream {STREAM_SIZE}x{STREAM_SIZE}, {STREAM_FRAMES} frames (update + "
+        f"render): ms/frame median(frames 2-{STREAM_FRAMES}) "
+        f"{np.median(res['frame_seconds'][1:]) * 1e3:.2f}; active instances per frame {active}; "
+        f"peak memory {peak / 2**30:.3f} GiB; non-finite pixels {nonfinite}, mean luminance "
+        f"{mean_lum:.4f}; trace calls {counts['trace_calls']} = tile-walk launches "
+        f"{counts['tile_walk']}; update_activity on the {city.num_tris}-triangle, "
+        f"{city.num_instances}-instance city {act_ms:.4f} ms (CUDA events, 5 calls)")
+
+    # The small city with every other instance (the ground kept) inactive.
+    small = to_device(small_arrays, device)
+    keep = np.ones(small.num_instances, dtype=bool)
+    keep[1::2] = False
+    off = update_activity(small, keep)
+    origin, direction = city_cam.pixel_rays(CITY_HW)
+    o, d = origin.reshape(-1, 3).contiguous(), direction.reshape(-1, 3).contiguous()
+    R = o.shape[0]
+    walk, _ = walk_case(off, o, d, torch.full((R,), DISTANCE_MAX, device=device),
+                        torch.zeros((R,), device=device),
+                        torch.full((R,), -1, dtype=torch.int32, device=device),
+                        torch.zeros((R,), dtype=torch.int32, device=device),
+                        torch.full((R,), off.num_tris, dtype=torch.int32, device=device))
+    compare("[dynamic] small city, every other instance inactive, K2",
+            tw.tile_walk(*walk), tw.tile_walk_reference(*walk))
+    kept = np.nonzero(keep)[0]
+    sub_scene = copy.copy(small_scene)
+    sub_scene.instances = [small_scene.instances[i] for i in kept]
+    sub = to_device(compile_scene(sub_scene), device)
+    # A prim of the compile without those instances, as a prim of the
+    # full compile: same instance-local order, the full compile's offset.
+    kept_t = torch.from_numpy(kept).to(device)
+
+    def to_full(prim):
+        p = prim.clamp(min=0).long()
+        inst = sub.tri_inst[p].long()
+        full = off.inst_prim_offset[kept_t[inst]] + (p - sub.inst_prim_offset[inst])
+        return torch.where(prim >= 0, full.to(torch.int32), -1)
+
+    kw = dict(max_distance=DISTANCE_MAX, method="pallas_tiled")
+    h_off = api.trace_rays(off, o, d, **kw)
+    h_sub = api.trace_rays(sub, o, d, **kw)
+    ties, err = hits_agree("small city: inactive against compiled without", h_off, h_sub, to_full)
+    log(f"[dynamic] small city ({small.num_instances} instances, {len(kept)} active): K2 on the "
+        f"half-inactive scene against K2 on a compile without those instances "
+        f"({sub.num_tris} triangles): prims equal on {R - ties} of {R} rays, {ties} ties, max "
+        f"|t| err {err:.3g}")
+    return counts["tile_walk"]
+
+
+def check_city_update(city, city_arrays, device):
+    """[dynamic] (c): ``update_transforms`` on the card against the CPU on
+    the city with 10% of its instances moved (seeded): every written field
+    within ``DYN_UPDATE_REL`` of its largest magnitude, ``tri_valid``
+    equal; the card's device time."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from hikari_tpu_torch.scene import to_device, update_transforms
+
+    rng = np.random.default_rng(23)
+    I = city.num_instances
+    models = np.array(city_arrays.inst_model, dtype=np.float32)
+    for i in rng.choice(I, int(I * DYN_CITY_MOVED), replace=False):
+        a = rng.uniform(-math.pi, math.pi)
+        turn = np.eye(4, dtype=np.float32)
+        turn[[0, 0, 2, 2], [0, 2, 0, 2]] = (math.cos(a), math.sin(a), -math.sin(a), math.cos(a))
+        models[i] = models[i] @ turn
+        models[i, :3, 3] += rng.uniform(-2.0, 2.0, 3).astype(np.float32)
+    cpu = to_device(city_arrays, "cpu")
+    t0 = time.perf_counter()
+    want = update_transforms(cpu, models)
+    cpu_s = time.perf_counter() - t0
+    got = update_transforms(city, models)
+    worst = 0.0
+    for f in UPDATE_FIELDS:
+        a, b = getattr(got, f).cpu(), getattr(want, f)
+        if a.dtype == torch.bool:
+            if not torch.equal(a, b):
+                raise AssertionError(f"[dynamic] city update: {f} differs from the CPU's")
+            continue
+        scale = float(b.abs().max())
+        rel = float((a - b).abs().max()) / max(scale, 1e-30)
+        worst = max(worst, rel)
+        if not rel <= DYN_UPDATE_REL:
+            raise AssertionError(f"[dynamic] city update: {f} differs from the CPU's by {rel:.3g} "
+                                 f"of its largest magnitude {scale:.6g}")
+    dev_ms = cuda_time_ms(lambda: update_transforms(city, models), 5)
+    log(f"[dynamic] city update_transforms, {int(I * DYN_CITY_MOVED)} of {I} instances moved: "
+        f"every written field within {worst:.3g} of its largest magnitude (<= {DYN_UPDATE_REL}), "
+        f"tri_valid equal; card {dev_ms:.4f} ms (CUDA events, 5 calls), CPU {cpu_s:.2f} s (one "
+        f"call, host clock)")
+    return got
+
+
+def check_bvh_walk(label, scene, o, d, method, device):
+    """[dynamic] (d): ``trace_rays(method="bvh")`` against the kernel-backed
+    ``method`` on the same rays: prims equal apart from counted ties;
+    the bvh walk's time next to the kernel's."""
+    import torch
+
+    from hikari_tpu_torch.config import DISTANCE_MAX
+    from hikari_tpu_torch.trace import api
+
+    kw = dict(max_distance=DISTANCE_MAX)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    walk = api.trace_rays(scene, o, d, method="bvh", **kw)
+    torch.cuda.synchronize()
+    walk_ms = (time.perf_counter() - t0) * 1e3
+    kern = api.trace_rays(scene, o, d, method=method, **kw)
+    kern_ms = cuda_time_ms(lambda: api.trace_rays(scene, o, d, method=method, **kw), 5)
+    ties, err = hits_agree(label, walk, kern)
+    R = o.shape[0]
+    log(f"[dynamic] bvh walk on {label}, {R} rays: prims equal to {method} on {R - ties}, "
+        f"{ties} ties, max |t| err {err:.3g}; bvh {walk_ms:.2f} ms (host clock, one call, a host "
+        f"sync a step), {method} trace_rays {kern_ms:.4f} ms (CUDA events, 5 calls)")
+
+
+def run_dynamic_phase(arrays, city, city_arrays, small_arrays, city_cam, device, profile=False):
+    """[dynamic]: (a) ``cornell_dynamic`` and its check against the CPU,
+    (b) ``city_stream`` and the small city's activity, (c) the city update
+    against the CPU, (d) the bvh walk against K1 and K2. Returns the
+    closest-hit launches of (a) and the tile-walk launches of (b)."""
+    import numpy as np
+
+    from hikari_tpu_torch.bench import bench_config
+    from hikari_tpu_torch.io.scenes import city_scene
+    from hikari_tpu_torch.scene import to_device, update_transforms
+
+    t0 = time.perf_counter()
+    _, _, bench = bench_config("cornell", device)
+    settings = dynamic_settings(bench, CORNELL_HW[1], CORNELL_HW[0])
+    moved_cornell, k1 = run_cornell_dynamic(arrays, settings, device, profile)
+    check_dynamic_small(arrays, bench, device)
+    k2 = run_city_stream(city, small_arrays, city_scene(blocks=3, detail=True), city_cam, device)
+    check_city_update(city, city_arrays, device)
+    origin, direction = orbit_camera(FRAMES - 1, device).pixel_rays(CORNELL_HW)
+    check_bvh_walk(f"the moved cornell ({CORNELL_HW[1]}x{CORNELL_HW[0]} primary rays)",
+                   moved_cornell, origin.reshape(-1, 3), direction.reshape(-1, 3), "pallas",
+                   device)
+    small = to_device(small_arrays, device)
+    rng = np.random.default_rng(29)
+    models = np.array(small_arrays.inst_model, dtype=np.float32)
+    pick = rng.choice(small.num_instances - 1, small.num_instances // 10, replace=False) + 1
+    models[pick, :3, 3] += rng.uniform(-1.5, 1.5, (len(pick), 3)).astype(np.float32)
+    moved_small = update_transforms(small, models)
+    origin, direction = city_cam.pixel_rays((256, 256))
+    check_bvh_walk("the moved small city (256x256 primary rays)", moved_small,
+                   origin.reshape(-1, 3), direction.reshape(-1, 3), "pallas_tiled", device)
+    log(f"[dynamic] {time.perf_counter() - t0:.1f} s")
+    return k1, k2
+
+
 def main():
     import torch
 
@@ -1583,6 +2048,10 @@ def main():
     check_small("small city (blocks=3), bench settings, scatter", small_gpu, small_cpu, city_cam,
                 bench_settings(city_settings, SMALL_BENCH_HW[1], SMALL_BENCH_HW[0], "scatter"), dev)
 
+    # ---- 4d. dynamic scenes: cornell_dynamic, city_stream, the update, the bvh walk ----
+    dyn_k1, dyn_k2 = run_dynamic_phase(arrays, city, city_arrays, small_arrays, city_cam, dev,
+                                       profile)
+
     # The closest-hit launches of the main paths with a table larger than
     # one TPU tile (K1b's regime): none of the paths has one.
     k1b_launches = sum(x["closest_hit_k1b"] for x in (cornell_launches, bench_launches,
@@ -1639,7 +2108,7 @@ def main():
             "route": "cuda",
             "source": "hikari_tpu_torch/csrc/closest_hit.cu",
             "replaces": "hikari_tpu/trace/pallas_kernel.py:142",
-            "launches": cornell_launches["closest_hit"],
+            "launches": cornell_launches["closest_hit"] + dyn_k1,
             "max_abs_err": max(err_a, err_bf),
             "ms": ch_ms,
             "plain_ms": ch_plain_ms,
@@ -1665,7 +2134,7 @@ def main():
             "route": "cuda",
             "source": "hikari_tpu_torch/csrc/tile_walk.cu",
             "replaces": "hikari_tpu/trace/pallas_tiled.py:96",
-            "launches": city_launches["tile_walk"],
+            "launches": city_launches["tile_walk"] + dyn_k2,
             "max_abs_err": max(err_c, err_d),
             "ms": tw_ms,
             "plain_ms": tw_plain_ms,

@@ -39,7 +39,7 @@ def main(argv=None) -> dict:
     from hikari_tpu_torch.utils import resolve_device
 
     device = torch.device("cpu") if args.cpu else resolve_device()
-    out, state, timer = render(args.config, args.frames, args.size, device, args.assets)
+    out, state, timer, _ = render(args.config, args.frames, args.size, device, args.assets)
     os.makedirs(args.out_dir, exist_ok=True)
     written = {}
 

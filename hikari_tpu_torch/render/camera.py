@@ -11,7 +11,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from hikari_tpu_torch.utils import basis_apply, resolve_device
+from hikari_tpu_torch.utils import basis_apply, dot3_ordered, resolve_device
 
 
 def look_at_transform(eye, target, up=(0.0, 1.0, 0.0)) -> np.ndarray:
@@ -46,8 +46,12 @@ def perspective_infinite_reverse(fov_y: float, aspect: float, near: float) -> np
 
 
 def _inv(m):
-    # inv_ex: no singularity check, so no device-to-host sync per frame.
-    return torch.linalg.inv_ex(m).inverse
+    """The f32 inverse, computed in f64 and rounded, so that the card and
+    the CPU give the same matrix: under a moving camera its last bits move
+    the depth and motion vectors, on which SMAA TU4x and TAA take exact
+    ties on planar surfaces. inv_ex: no singularity check, so no
+    device-to-host sync per frame."""
+    return torch.linalg.inv_ex(m.double()).inverse.float()
 
 
 @dataclass(frozen=True)
@@ -114,15 +118,22 @@ class Camera:
         if jitter is not None:
             px = px + float(jitter[0])
             py = py + float(jitter[1])
-        ndc_x = 2.0 * px / w - 1.0
-        ndc_y = 1.0 - 2.0 * py / h
+        # The card's rays are the CPU twin's bit for bit: the divisors are
+        # tensors (CUDA divides by a Python scalar as a product with its
+        # reciprocal, the CPU divides), the norm is summed in order and its
+        # root taken in f64 and rounded (neither device's f32 sqrt is
+        # correctly rounded, and they differ).
         f = float(np.float32(1.0) / np.tan(np.float32(0.5 * self.fov_y)))
+        w_t, h_t, f_t = (torch.full((), float(x), device=dev) for x in (w, h, f))
+        ndc_x = 2.0 * px / w_t - 1.0
+        ndc_y = 1.0 - 2.0 * py / h_t
         aspect = w / h
         dir_view = torch.stack(
-            [ndc_x * aspect / f, ndc_y / f, -torch.ones_like(ndc_x)], dim=-1
+            [ndc_x * aspect / f_t, ndc_y / f_t, -torch.ones_like(ndc_x)], dim=-1
         )
         dir_world = basis_apply(self.world_from_view[:3, :3], dir_view)
-        dir_world = dir_world / torch.sqrt((dir_world * dir_world).sum(-1, keepdim=True))
+        n2 = dot3_ordered(dir_world, dir_world)[..., None]
+        dir_world = dir_world / torch.sqrt(n2.double()).float()
         origin = self.position.expand(dir_world.shape)
         return origin, dir_world
 
@@ -130,5 +141,5 @@ class Camera:
         """Reversed-Z ndc depth of world points: near / view distance —
         the G-buffer ``position.w`` of the reference."""
         inv = _inv(self.world_from_view)
-        z_view = (world_position * inv[2, :3]).sum(-1) + inv[2, 3]
+        z_view = dot3_ordered(world_position, inv[2, :3]) + inv[2, 3]
         return self.near / torch.clamp(-z_view, min=1e-8)

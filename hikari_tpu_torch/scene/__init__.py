@@ -13,6 +13,11 @@ from hikari_tpu_torch.scene.compile import (
 from hikari_tpu_torch.scene.buffers import SceneBuffers, build_scene_buffers, to_device
 from hikari_tpu_torch.scene.bvh import FlatBvh, build_flat_bvh, validate_flat_bvh
 from hikari_tpu_torch.scene.alias import build_alias_table
+from hikari_tpu_torch.scene.update import (
+    SceneUpdater,
+    update_activity,
+    update_transforms,
+)
 
 __all__ = [
     "Mesh",
@@ -31,4 +36,7 @@ __all__ = [
     "build_flat_bvh",
     "validate_flat_bvh",
     "build_alias_table",
+    "SceneUpdater",
+    "update_activity",
+    "update_transforms",
 ]

@@ -14,6 +14,11 @@ plain twin for CPU tensors:
   becomes an item, each item block is tested against its one cluster, and
   a segment-min picks each ray's winner.
 
+A fourth search, the JAX package's lockstep BVH walk (``method="bvh"``,
+``_trace_bvh``), walks the stitched node graph that
+``scene/update.update_transforms`` refits. It is plain torch on either
+device, as it is plain XLA in the JAX package, and no main path takes it.
+
 The searches are not differentiable (they return integer hit ids plus
 detached (t, u, v)); ``refine_hit`` / ``hit_info`` recompute (t, u, v) at
 the fixed hit triangle from ``scene.tri_world``, so gradients reach the
@@ -30,24 +35,25 @@ from hikari_tpu_torch.config import DISTANCE_MAX, F32_MAX
 from hikari_tpu_torch.diff import clip_gradient
 from hikari_tpu_torch.scene.buffers import SceneBuffers
 from hikari_tpu_torch.trace.closest_hit import closest_hit, pack_triangles
-from hikari_tpu_torch.trace.intersect import intersects_triangle
+from hikari_tpu_torch.trace.intersect import intersects_aabb, intersects_triangle
 from hikari_tpu_torch.trace.scatter import CLUSTER as SCATTER_CLUSTER
 from hikari_tpu_torch.trace.scatter import trace_scatter
 from hikari_tpu_torch.trace.tiled import TILE_R
 from hikari_tpu_torch.trace.tile_walk import pack_clusters, trace_tile_walk
 from hikari_tpu_torch.utils import safe_normalize, take_rows
 
-# trace_rays calls whose rays lay on a CUDA device (each is one kernel
-# launch, so a run can check every trace went through a kernel).
+# trace_rays calls that went to a kernel-backed search with rays on a CUDA
+# device (each is one kernel launch, so a run can check every trace went
+# through a kernel). The BVH walk launches no kernel of its own and is not
+# counted.
 trace_calls = 0
 
 # Backends of the JAX package that have no port yet, with the ROADMAP item
 # that ports them.
 _NOT_PORTED = {
     "tiled": "queue 1, 'Large-scene leftovers' (trace/tiled.py trace_tiled)",
-    "bvh": "queue 1, 'Large-scene leftovers' (lockstep BVH walk)",
 }
-_SEARCH_METHODS = ("auto", "auto_xla", "pallas", "bruteforce", "pallas_tiled", "scatter")
+_SEARCH_METHODS = ("auto", "auto_xla", "pallas", "bruteforce", "pallas_tiled", "scatter", "bvh")
 
 
 @dataclass(frozen=True)
@@ -83,8 +89,9 @@ def trace_rays(
     scalars (broadcast to the ray shape): max_distance, early_distance
     (the tile walk may stop a ray at any hit nearer than it: an any-hit
     query for shadow rays), exclude_instance (i32, -1 = none), and a
-    primitive id range [range_lo, range_hi). ``max_steps`` only steers the
-    JAX package's BVH walk and is ignored.
+    primitive id range [range_lo, range_hi). ``max_steps`` caps the steps
+    of the BVH walk (0: ``num_nodes``, its exact worst case); the other
+    searches ignore it.
 
     Dispatch, the JAX package's choice on its TPU: "auto"/"auto_xla" test
     every triangle (K1) up to ``bruteforce_max_tris`` triangles and walk
@@ -92,8 +99,13 @@ def trace_rays(
     triangle; "pallas_tiled" always walks tiles; "scatter" always takes
     the cluster-major scatter search, which returns the exact closest hit
     and ignores ``early_distance``, as in the JAX package. Each runs its
-    kernel on CUDA and its twin on the CPU. "tiled" and "bvh" are not
-    ported yet and raise NotImplementedError.
+    kernel on CUDA and its twin on the CPU, and each CUDA call adds one to
+    ``trace_calls``. "bvh" is the JAX package's lockstep BVH walk
+    (``_trace_bvh``) in plain torch on either device, over the node graph
+    ``node_min``/``node_max`` that ``scene.update.update_transforms``
+    refits; it makes one host sync per step, takes no kernel and does not
+    count in ``trace_calls``. "tiled" is not ported yet and raises
+    NotImplementedError.
 
     On the card "scatter" does not check its plan's cluster ids on the host
     (that would sync every call): an item block naming a cluster outside
@@ -108,7 +120,8 @@ def trace_rays(
     triangle duplicated at prims 1, 4 and 8 returns prim 8). "scatter"
     (K3) applies that rule within each cluster, then keeps the first
     cluster among equal t. "bruteforce" keeps the lowest prim among equal
-    t, as the JAX ``_trace_bruteforce`` does."""
+    t, as the JAX ``_trace_bruteforce`` does; "bvh" keeps the first hit
+    its walk meets among equal t, as the JAX ``_trace_bvh`` does."""
     global trace_calls
     if method in _NOT_PORTED:
         raise NotImplementedError(
@@ -134,9 +147,12 @@ def trace_rays(
     lo = per_ray(range_lo, 0, torch.int32)
     hi = per_ray(range_hi, scene.num_tris, torch.int32)
 
-    if dev.type == "cuda" and R:
+    if dev.type == "cuda" and R and method != "bvh":
         trace_calls += 1
-    if method == "pallas_tiled":
+    if method == "bvh":
+        early = per_ray(early_distance, 0.0, torch.float32)
+        t, prim, u, v = _trace_bvh(scene, o, d, maxd, early, excl, lo, hi, max_steps)
+    elif method == "pallas_tiled":
         early = per_ray(early_distance, 0.0, torch.float32)
         t, prim, u, v = _trace_tile_walk(scene, o, d, maxd, early, excl, lo, hi)
     elif method == "scatter":
@@ -226,6 +242,118 @@ def _trace_tile_walk(scene: SceneBuffers, o, d, maxd, early, excl, lo, hi):
         y[order] = x[:R]
         out.append(y)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Stackless BVH walk (vectorized lockstep)
+# ---------------------------------------------------------------------------
+
+
+BVH_RAY_CHUNK = 65536  # rays per lockstep walk
+
+
+def _trace_bvh(scene: SceneBuffers, o, d, maxd, early, excl, lo, hi, max_steps: int = 0):
+    """Chunked lockstep walks (JAX ``_trace_bvh``): each ``BVH_RAY_CHUNK``-ray
+    walk ends on its own, so coherent chunks exit in few steps. Above one
+    chunk the rays are first sorted by direction octant (stable), so each
+    chunk's walk is coherent. Returns (t, prim, u, v) in ray order."""
+    R = o.shape[0]
+    if R <= BVH_RAY_CHUNK:
+        return _trace_bvh_chunk(scene, o, d, maxd, early, excl, lo, hi, max_steps)
+    key = (
+        (d[:, 0] < 0).to(torch.int32) * 4
+        + (d[:, 1] < 0).to(torch.int32) * 2
+        + (d[:, 2] < 0).to(torch.int32)
+    )
+    order = torch.argsort(key, stable=True)
+    # The last chunk is filled with the JAX package's inert rays (maxd = 0,
+    # hi = 0: they never hit). They can lengthen that chunk's walk, and a
+    # finished ray re-tests the last node on every step, so they stay.
+    pad = -(-R // BVH_RAY_CHUNK) * BVH_RAY_CHUNK - R
+
+    def sort_pad(x, fill):
+        x = x[order]
+        return torch.cat([x, torch.full((pad,) + x.shape[1:], fill, dtype=x.dtype,
+                                        device=x.device)])
+
+    rays = [sort_pad(x, f) for x, f in ((o, 0.0), (d, 1.0), (maxd, 0.0), (early, 0.0),
+                                         (excl, -1), (lo, 0), (hi, 0))]
+    parts = [
+        _trace_bvh_chunk(scene, *(x[s:s + BVH_RAY_CHUNK] for x in rays), max_steps=max_steps)
+        for s in range(0, R, BVH_RAY_CHUNK)
+    ]
+    out = []
+    for k in range(4):
+        x = torch.cat([p[k] for p in parts])[:R]
+        y = torch.empty_like(x)
+        y[order] = x
+        out.append(y)
+    return out
+
+
+def _trace_bvh_chunk(scene: SceneBuffers, o, d, maxd, early, excl, lo, hi, max_steps: int = 0):
+    """One lockstep walk of the stitched node graph (JAX
+    ``_trace_bvh_chunk``): every ray follows the stackless entry/exit
+    links (``node_entry``/``node_exit``) from node 0, testing a leaf's
+    triangle and descending into an inner node whose box it enters before
+    its best hit. Exclusion applies only to nodes tagged with an instance.
+    It stops once no ray is left walking (one host sync per step) or after
+    ``max_steps or num_nodes`` steps (the entry/exit walk visits each node
+    at most once; rays past a smaller cap keep their best hit so far). A
+    ray whose hit is nearer than ``early`` stops there. As in the JAX
+    package, a ray that has stopped still tests the last node's triangle
+    on every later step of its chunk."""
+    R = o.shape[0]
+    dev = o.device
+    num_nodes = scene.num_nodes
+    step_cap = max_steps if max_steps > 0 else num_nodes
+    inv_d = 1.0 / torch.where(d.abs() < 1e-20, torch.where(d < 0, -1e-20, 1e-20), d)
+    tri = scene.tri_world.detach()
+    P = tri.shape[0]
+    end = num_nodes
+
+    idx = torch.zeros((R,), dtype=torch.int32, device=dev)
+    best_t = torch.clamp(maxd, max=F32_MAX)
+    best_prim = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    best_u = torch.zeros((R,), device=dev)
+    best_v = torch.zeros((R,), device=dev)
+    for _ in range(step_cap):
+        active = idx != end
+        keep = active & ~((best_prim >= 0) & (best_t < early))
+        if not bool(keep.any()):
+            break
+        safe_idx = torch.clamp(idx, 0, num_nodes - 1).long()
+        entry = scene.node_entry[safe_idx]
+        exit_ = scene.node_exit[safe_idx]
+        ninst = scene.node_inst[safe_idx]
+
+        is_leaf = entry < 0
+        prim_id = -entry - 1
+        safe_prim = torch.clamp(prim_id, 0, P - 1).long()
+        tv0, tv1, tv2 = gather_triangle_vertices(tri, safe_prim)
+        t, u, v = intersects_triangle(o, d, tv0, tv1, tv2)
+        # Untagged nodes carry inst == -1, which must never match the "no
+        # exclusion" sentinel (-1).
+        not_excluded = (ninst < 0) | (ninst != excl)
+        tri_ok = (
+            is_leaf
+            & scene.tri_valid[safe_prim]
+            & (t < best_t)
+            & not_excluded
+            & (prim_id >= lo)
+            & (prim_id < hi)
+        )
+        best_t = torch.where(tri_ok, t, best_t)
+        best_prim = torch.where(tri_ok, prim_id, best_prim).to(torch.int32)
+        best_u = torch.where(tri_ok, u, best_u)
+        best_v = torch.where(tri_ok, v, best_v)
+
+        aabb_t = intersects_aabb(o, inv_d, scene.node_min[safe_idx], scene.node_max[safe_idx])
+        descend = (~is_leaf) & (aabb_t < best_t) & not_excluded
+        next_idx = torch.where(is_leaf | ~descend, exit_, entry)
+        done_early = (best_prim >= 0) & (best_t < early)
+        idx = torch.where(active & ~done_early, next_idx, end).to(torch.int32)
+    return best_t, best_prim, best_u, best_v
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Core intersection math on tensors: Möller-Trumbore and the point-in-box
-test (reference src/shaders/light.wgsl:340-398) and the plane/dual-basis
+"""Core intersection math on tensors: Möller-Trumbore, the AABB slab test
+and the point-in-box test (reference src/shaders/light.wgsl:340-398) and
+the plane/dual-basis
 triangle precomputation the closest-hit search consumes — the port of
 ``hikari_tpu.trace.intersect``. Everything broadcasts over leading dims."""
 
@@ -8,11 +9,23 @@ from __future__ import annotations
 import torch
 
 from hikari_tpu_torch.config import F32_EPSILON, F32_MAX
-from hikari_tpu_torch.utils import cross, dot3
+from hikari_tpu_torch.utils import cross, dot3_ordered
 
 # |det| guard of the refine recompute: bounds 1/det (and its backward) for
 # grazing hits; forward values change only for |det| < 1e-6.
 DET_GUARD = 1e-6
+
+
+def intersects_aabb(origin, inv_direction, aabb_min, aabb_max):
+    """Slab test (reference light.wgsl:344-362). Returns the entry
+    distance t_min, or F32_MAX on a miss (the reference's convention: the
+    traversal compares ``t < best_distance``)."""
+    t1 = (aabb_min - origin) * inv_direction
+    t2 = (aabb_max - origin) * inv_direction
+    t_min = torch.minimum(t1, t2).amax(-1)
+    t_max = torch.maximum(t1, t2).amin(-1)
+    hit = (t_max >= t_min) & (t_max >= 0.0)
+    return torch.where(hit, t_min, F32_MAX)
 
 
 def inside_aabb(p, aabb_min, aabb_max):
@@ -26,7 +39,7 @@ def intersects_triangle(origin, direction, v0, v1, v2):
     ab = v1 - v0
     ac = v2 - v0
     u_vec = cross(direction, ac)
-    det = dot3(ab, u_vec)
+    det = dot3_ordered(ab, u_vec)
     safe_det = torch.where(
         det.abs() < DET_GUARD,
         torch.where(det < 0.0, -DET_GUARD, DET_GUARD),
@@ -34,10 +47,10 @@ def intersects_triangle(origin, direction, v0, v1, v2):
     )
     inv_det = 1.0 / safe_det
     ao = origin - v0
-    u = dot3(ao, u_vec) * inv_det
+    u = dot3_ordered(ao, u_vec) * inv_det
     v_vec = cross(ao, ab)
-    v = dot3(direction, v_vec) * inv_det
-    t = dot3(ac, v_vec) * inv_det
+    v = dot3_ordered(direction, v_vec) * inv_det
+    t = dot3_ordered(ac, v_vec) * inv_det
     valid = (
         (det.abs() >= F32_EPSILON)
         & (u >= 0.0)
@@ -59,7 +72,7 @@ def precompute_triangles(tri_world):
     e1 = tri_world[:, 1] - v0
     e2 = tri_world[:, 2] - v0
     n = cross(e1, e2)
-    n2 = (n * n).sum(-1, keepdim=True)
+    n2 = dot3_ordered(n, n)[..., None]
     valid = n2[..., 0] > 1e-24
     inv_n2 = 1.0 / torch.clamp(n2, min=1e-24)
     eu = cross(e2, n) * inv_n2
@@ -68,8 +81,8 @@ def precompute_triangles(tri_world):
         n=n,
         eu=eu,
         ev=ev,
-        cn=(v0 * n).sum(-1),
-        cu=(v0 * eu).sum(-1),
-        cv=(v0 * ev).sum(-1),
+        cn=dot3_ordered(v0, n),
+        cu=dot3_ordered(v0, eu),
+        cv=dot3_ordered(v0, ev),
         valid=valid,
     )

@@ -46,6 +46,15 @@ def dot3(a, b):
     return (a * b).sum(-1)
 
 
+def dot3_ordered(a, b):
+    """``dot3`` summed left to right in separate operations: the CPU's
+    ``sum(-1)`` bits on both devices (a CUDA reduction over the last axis
+    associates otherwise). Used where the card must reproduce the CPU
+    twin's geometry: ray directions, refined hits, depth, triangle planes."""
+    p = a * b
+    return p[..., 0] + p[..., 1] + p[..., 2]
+
+
 def normalize(v, eps: float = 0.0):
     """Normalize the last axis; with eps>0 the guard sits inside the sqrt
     (``sqrt(max(|v|^2, eps^2))``) so the backward stays finite at 0."""

@@ -174,7 +174,8 @@ def test_scene_config_with_asset_raises(tmp_path):
 
 def test_render_entry_point(tmp_path):
     """``examples/render`` on the CPU: 2 frames at 24x24 into a finite,
-    lit PNG; ``--stream`` raises, naming its ROADMAP item."""
+    lit PNG; ``--stream`` streams the instances in (instance 0 first, all
+    of cornell's 8 over 3 frames, 4 a frame) into a finite image."""
     from hikari_tpu_torch.examples import render
 
     out = tmp_path / "cornell.png"
@@ -182,8 +183,9 @@ def test_render_entry_point(tmp_path):
     img = timage.read_png(str(out))
     assert img.shape == (24, 24, 3) and np.isfinite(res["image"]).all()
     assert img.mean() > 0.0 and len(res["frame_seconds"]) == 2
-    with pytest.raises(NotImplementedError, match="queue 1 item 6, 'Dynamic scenes'"):
-        render.main(["cornell", "--cpu", "--stream"])
+    res = render.main(["cornell", "--frames", "3", "--size", "24", "--cpu", "--stream", "--out",
+                       str(tmp_path / "stream.png")])
+    assert [m.sum() for m in res["masks"]] == [5, 8, 8] and np.isfinite(res["image"]).all()
 
 
 def test_dissect_entry_point(tmp_path):

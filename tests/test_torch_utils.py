@@ -115,6 +115,18 @@ def test_vector_math_matches(fn):
     np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-7)
 
 
+def test_dot3_ordered_is_the_cpu_sum():
+    """``dot3_ordered`` (summed left to right in separate operations, so
+    the card gives the same bits) equals ``dot3``'s CPU ``sum(-1)`` bit for
+    bit and JAX's dot within the FMA tolerance above."""
+    rng = np.random.default_rng(8)
+    a, b = (rng.normal(size=(4099, 3)).astype(np.float32) for _ in range(2))
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    assert torch.equal(tu.dot3_ordered(ta, tb), tu.dot3(ta, tb))
+    want = np.asarray(ju.dot3(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_allclose(tu.dot3_ordered(ta, tb).numpy(), want, rtol=2e-6, atol=2e-6)
+
+
 def test_basis_apply_matches_einsum():
     rng = np.random.default_rng(6)
     n = rng.normal(size=(64, 3)).astype(np.float32)
