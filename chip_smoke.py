@@ -112,6 +112,36 @@ Phases, each reported on its own line:
      10% of its instances moved. (d) ``trace_rays(method="bvh")`` against
      the closest-hit kernel on the moved cornell (1080p primary rays) and
      against the tile walk on a moved small city (256x256), ties counted.
+  12. the XLA tiled tracer (after 4's [check]). [tiled]:
+     ``trace_rays(method="tiled")`` (plain torch, no kernel) on the card at
+     (c) and (d): host ms of one call, its steps and the clusters of 512
+     tested per tile (max, p50, p90); the CPU's ``trace_tiled`` on every
+     ``TILED_CPU_STRIDE``-th whole tile of the same sorted, padded rays
+     must give those rays the card's t, prim, u, v bit for bit; against
+     K2 there and against K1 on the cornell 1080p primary rays, prims
+     equal but for counted ties and (at (d)) any-hit answers;
+     ``city_tiled``, 2 frames of ``city_path``'s settings with
+     ``tracer="tiled"``: finite, lit, no kernel launch; the small city's
+     tiled frames at 48x63, card against CPU.
+  13. [bench_trace] (after 12): ``hikari_tpu_torch.bench_trace`` on
+     cornell, city-8, city-24 and city-551k with its six backends at
+     1,048,576 rays, then ``--stress`` (terrain-1m) with pallas, tiled,
+     pallas_tiled and scatter; every kernel backend's launches equal its
+     trace calls (each measurement's counts set to 0 just before it), and
+     its K1b launches join the kernel line; K1b against its twin on the
+     card, bit for bit, at every bench row that launched it (city-8 on all
+     1,048,576 rays, the larger tables on every k-th ray), and K1b's
+     kernel-line times at city-8's shape.
+  14. [remat] (after [train]): from one state, one ``cornell_bench``
+     fwd+grad step with ``remat=True``, two with ``remat=False`` and one
+     with ``channel_remat=True``: loss and every leaf within
+     ``REMAT_FACTOR`` times the two no-remat steps' own difference
+     (floor ``REMAT_FLOOR``), peak memory (remat's below no remat's), host
+     and device ms, 0 closest-hit launches in each backward; the
+     repeatability readings (the two no-remat steps, and
+     ``cornell_dynamic`` frames 0-3 run twice from one state).
+  15. [tools]: ``tools/clip_engagement --size 256`` and
+     ``tools/measure_spatial_grads --size 64 -k 2`` on the card, finite.
   Each of 8-11 sets the counts to 0 just before each run and requires
   every trace of its main paths to go through the kernel of that path.
 Every kernel case has a tie case: one triangle duplicated at prims 1, 4 and
@@ -220,6 +250,22 @@ DYN_CITY_MOVED = 0.1
 # the ray met two triangles at one distance (a tie, counted). The bvh
 # walk computes t by Moller-Trumbore, the kernels by the plane form.
 TIE_REL = 1e-5
+# [tiled]: the card's full calls are held to the CPU on every k-th tile at
+# (c) and (d) (tiles are independent): 32 of 512 tiles at (c), 16 of 128 at
+# (d), the only rays with early distance, exclusion and prim ranges. The
+# CPU takes ~0.3 s a tile at (c) and ~2 s at (d). city_tiled renders this
+# many frames.
+TILED_CPU_STRIDE = (16, 8)
+TILED_FRAMES = 2
+# [bench_trace]: the rays of the default scene set (the JAX bench's default).
+BENCH_TRACE_RAYS = 1 << 20
+# [bench_trace]: K1b's twin tests at most this many (ray, triangle) pairs a
+# row (city-8's 1,048,576 rays x 3,290 triangles); larger tables take every
+# k-th ray of the row.
+K1B_TWIN_PAIRS = 3_500_000_000
+# [remat]: remat against no remat within this factor of the larger of the
+# two no-remat steps' own difference and the floor (relative L2).
+REMAT_FACTOR, REMAT_FLOOR = 10.0, 1e-6
 # Every field update_transforms writes.
 UPDATE_FIELDS = (
     "tri_world", "tri_n", "tri_eu", "tri_ev", "tri_cn", "tri_cu", "tri_cv", "tri_valid",
@@ -1461,10 +1507,13 @@ def static_snap(scene, moved):
     return worst
 
 
-def hits_agree(label, got, want, map_prim=None):
+def hits_agree(label, got, want, map_prim=None, early=None, tag="[dynamic]"):
     """``got`` against ``want`` (two searches of one scene): prims equal
-    apart from ties (prims differ, both t within ``TIE_REL``); any other
-    difference fails. Returns (ties, max |t| error where prims agree)."""
+    apart from ties (prims differ, both t within ``TIE_REL``) and, where
+    ``early`` (the rays' early distances) is given, any-hit answers (both
+    hit nearer than it: each search may stop at any such hit); any other
+    difference fails. Returns (ties, any-hit answers, max |t| error where
+    prims agree)."""
     import torch
 
     pw = want.prim if map_prim is None else map_prim(want.prim)
@@ -1472,14 +1521,17 @@ def hits_agree(label, got, want, map_prim=None):
     scale = torch.clamp(torch.maximum(got.t.abs(), want.t.abs()), min=1.0)
     close = (got.t - want.t).abs() <= TIE_REL * scale
     both_hit = (got.prim >= 0) & (pw >= 0)
-    ties = int((differ & both_hit & close).sum())
-    other = int((differ & ~(both_hit & close)).sum())
+    tie = differ & both_hit & close
+    anyhit = torch.zeros_like(differ)
+    if early is not None:
+        anyhit = differ & both_hit & ~close & (got.t < early) & (want.t < early)
+    other = int((differ & ~tie & ~anyhit).sum())
     same = ~differ
     err = float((got.t - want.t)[same & (got.prim >= 0)].abs().max()) if bool(same.any()) else 0.0
     if other:
-        raise AssertionError(f"[dynamic] {label}: {other} rays differ in their hit beyond ties "
-                             f"({ties} ties)")
-    return ties, err
+        raise AssertionError(f"{tag} {label}: {other} rays differ in their hit beyond ties "
+                             f"({int(tie.sum())} ties, {int(anyhit.sum())} any-hit answers)")
+    return int(tie.sum()), int(anyhit.sum()), err
 
 
 def run_cornell_dynamic(arrays, settings, device, profile=False):
@@ -1681,7 +1733,8 @@ def run_city_stream(city, small_arrays, small_scene, city_cam, device):
     kw = dict(max_distance=DISTANCE_MAX, method="pallas_tiled")
     h_off = api.trace_rays(off, o, d, **kw)
     h_sub = api.trace_rays(sub, o, d, **kw)
-    ties, err = hits_agree("small city: inactive against compiled without", h_off, h_sub, to_full)
+    ties, _, err = hits_agree("small city: inactive against compiled without", h_off, h_sub,
+                              to_full)
     log(f"[dynamic] small city ({small.num_instances} instances, {len(kept)} active): K2 on the "
         f"half-inactive scene against K2 on a compile without those instances "
         f"({sub.num_tris} triangles): prims equal on {R - ties} of {R} rays, {ties} ties, max "
@@ -1753,7 +1806,7 @@ def check_bvh_walk(label, scene, o, d, method, device):
     walk_ms = (time.perf_counter() - t0) * 1e3
     kern = api.trace_rays(scene, o, d, method=method, **kw)
     kern_ms = cuda_time_ms(lambda: api.trace_rays(scene, o, d, method=method, **kw), 5)
-    ties, err = hits_agree(label, walk, kern)
+    ties, _, err = hits_agree(label, walk, kern)
     R = o.shape[0]
     log(f"[dynamic] bvh walk on {label}, {R} rays: prims equal to {method} on {R - ties}, "
         f"{ties} ties, max |t| err {err:.3g}; bvh {walk_ms:.2f} ms (host clock, one call, a host "
@@ -1793,6 +1846,464 @@ def run_dynamic_phase(arrays, city, city_arrays, small_arrays, city_cam, device,
                    origin.reshape(-1, 3), direction.reshape(-1, 3), "pallas_tiled", device)
     log(f"[dynamic] {time.perf_counter() - t0:.1f} s")
     return k1, k2
+
+
+
+# ---------------------------------------------------------------------------
+# [tiled], [bench_trace], [remat], [tools]
+# ---------------------------------------------------------------------------
+
+
+def check_tiled_call(label, scene, scene_cpu, rays, stride):
+    """[tiled]: ``trace_rays(method="tiled")`` on the card over all ``rays``
+    (o, d, maxd, early, excl, lo, hi) and host ms of the call; then the same
+    walk as its two steps, ``tiled_inputs`` and ``trace_tiled``, on the card
+    for the steps and clusters tested per tile (its hits must be the
+    call's, bit for bit); the CPU's ``trace_tiled`` on every ``stride``-th
+    tile of the same sorted, padded rays (tiles are independent) must give
+    those tiles' rays the card's t, prim, u, v bit for bit. Returns the
+    card's hit and the per-ray arguments."""
+    import torch
+
+    from hikari_tpu_torch.trace import api
+    from hikari_tpu_torch.trace import tiled as tt
+    from hikari_tpu_torch.tools import ab_trace_kernels as ab
+    from hikari_tpu_torch.utils import same_bits
+
+    o, d, maxd, early, excl, lo, hi = rays
+    kw = dict(max_distance=maxd, early_distance=early, exclude_instance=excl, range_lo=lo,
+              range_hi=hi)
+    before = read_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hit = api.trace_rays(scene, o, d, method="tiled", **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if read_counts() != before:
+        raise AssertionError(f"[tiled] {label}: the tiled tracer launched a kernel or counted a "
+                             f"trace call")
+    R = o.shape[0]
+    order, tiles = api.tiled_inputs(*rays)
+    walk = tt.trace_tiled(scene, *tiles)
+    steps, tested = walk[4], walk[5]
+    for name, x in zip(("t", "prim", "u", "v"), walk[:4]):
+        if not same_bits(getattr(hit, name)[order], x[:R]):
+            raise AssertionError(f"[tiled] {label}: trace_tiled's {name} differs from the call's")
+    t_max, t_p50, t_p90, _ = ab.tested_stats(tested)
+    T = tiles[0].shape[0] // tt.TILE_R
+    sel = (torch.arange(0, T, stride, device=o.device)[:, None] * tt.TILE_R
+           + torch.arange(tt.TILE_R, device=o.device)).reshape(-1)
+    t0 = time.perf_counter()
+    cpu = tt.trace_tiled(scene_cpu, *(x[sel].cpu() for x in tiles))
+    cpu_s = time.perf_counter() - t0
+    real = sel < R
+    idx = order[sel[real]]
+    real = real.cpu()
+    for name, want in zip(("t", "prim", "u", "v"), cpu[:4]):
+        if not same_bits(getattr(hit, name)[idx].cpu(), want[real]):
+            raise AssertionError(f"[tiled] {label}: the card's {name} differs from the CPU's")
+    n_sel = -(-T // stride)
+    log(f"[tiled] {label}: {R} rays, {T} tiles, {int((hit.prim >= 0).sum())} hits; "
+        f"trace_rays(method='tiled') {ms:.2f} ms (host clock, one call), {steps} steps, clusters "
+        f"of {tt.CLUSTER} tested per tile max {t_max}, p50 {t_p50:g}, p90 {t_p90:g} ({int(tested.sum())} "
+        f"in all); card equals the CPU bit for bit (t, prim, u, v) on every {stride}th tile "
+        f"({n_sel} of {T} tiles, {int(real.sum())} rays; CPU {cpu_s:.1f} s)")
+    return hit, kw
+
+
+def run_city_tiled(city, cam, settings, device):
+    """[tiled] ``city_tiled``: ``TILED_FRAMES`` frames of ``city_path``'s
+    settings with ``tracer="tiled"``, counts set to 0 just before: finite
+    and lit, no kernel launch, every trace through the tiled tracer."""
+    import numpy as np
+    import torch
+
+    from hikari_tpu_torch.render.pipeline import initial_state, render_frame
+    from hikari_tpu_torch.trace import api
+    from hikari_tpu_torch.utils import luminance
+
+    s = settings.replace(tracer="tiled")
+    real, calls = api._trace_tiled, [0]
+
+    def counted(*args):
+        calls[0] += 1
+        return real(*args)
+
+    state = initial_state(s, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    frame_ms = []
+    api._trace_tiled = counted
+    try:
+        with torch.no_grad():
+            for _ in range(TILED_FRAMES):
+                t0 = time.perf_counter()
+                out, state = render_frame(city, cam, state, s)
+                torch.cuda.synchronize()
+                frame_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        api._trace_tiled = real
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    img = out.image
+    mean_lum = float(luminance(img[..., :3]).mean())
+    nonfinite = int((~torch.isfinite(img)).sum())
+    if any(counts.values()) or not calls[0] or nonfinite or not mean_lum > 0.0:
+        raise AssertionError(f"[tiled] city_tiled: counts {counts}, tiled calls {calls[0]}, "
+                             f"{nonfinite} non-finite pixels, mean luminance {mean_lum}")
+    log(f"[tiled] city_tiled {s.width}x{s.height}, {TILED_FRAMES} frames: {calls[0]} tiled "
+        f"calls, kernel launches and trace_calls {counts}; ms/frame "
+        f"{', '.join(f'{m:.1f}' for m in frame_ms)} (median {np.median(frame_ms):.1f}); peak "
+        f"memory {peak / 2**30:.3f} GiB; mean luminance {mean_lum:.4f}; non-finite pixels 0")
+
+
+def run_tiled_phase(cornell, cornell_rays, city, city_arrays, city_cam, city_settings, small_gpu,
+                    small_cpu, device):
+    """[tiled]: the XLA tile-binned tracer (plain torch) on the card: against
+    the CPU at (c) and (d), against K2 there and against K1 on the cornell
+    1080p primary rays (ties counted), ``city_tiled`` and the small city's
+    frames against the CPU."""
+    import torch
+
+    from hikari_tpu_torch.config import DISTANCE_MAX
+    from hikari_tpu_torch.scene import to_device
+    from hikari_tpu_torch.trace import api
+
+    t0 = time.perf_counter()
+    city_cpu = to_device(city_arrays, "cpu")
+    co, cd = (x.reshape(-1, 3).contiguous() for x in city_cam.pixel_rays(CITY_HW))
+    Rc = co.shape[0]
+    c_rays = (co, cd, torch.full((Rc,), DISTANCE_MAX, device=device),
+              torch.zeros((Rc,), device=device), torch.full((Rc,), -1, dtype=torch.int32, device=device),
+              torch.zeros((Rc,), dtype=torch.int32, device=device),
+              torch.full((Rc,), city.num_tris, dtype=torch.int32, device=device))
+    d_rays = city_random_rays(city, device)
+    for label, rays, stride in (("(c) city 512x512 primary", c_rays, TILED_CPU_STRIDE[0]),
+                                ("(d) city random rays", d_rays, TILED_CPU_STRIDE[1])):
+        hit, kw = check_tiled_call(label, city, city_cpu, rays, stride)
+        k2 = api.trace_rays(city, rays[0], rays[1], method="pallas_tiled", **kw)
+        k2_ms = cuda_time_ms(lambda: api.trace_rays(city, rays[0], rays[1], method="pallas_tiled",
+                                                    **kw), 3)
+        ties, anyhit, err = hits_agree(label + " vs K2", hit, k2, early=rays[3], tag="[tiled]")
+        log(f"[tiled] {label} against K2 (tile walk): prims equal on "
+            f"{rays[0].shape[0] - ties - anyhit}, {ties} ties, {anyhit} any-hit answers (both "
+            f"nearer than the early distance), max |t| err {err:.3g}; K2 trace_rays {k2_ms:.4f} ms")
+    del city_cpu
+    o, d = cornell_rays
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    hit = api.trace_rays(cornell, o, d, max_distance=DISTANCE_MAX, method="tiled")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) * 1e3
+    k1 = api.trace_rays(cornell, o, d, max_distance=DISTANCE_MAX, method="pallas")
+    ties, _, err = hits_agree("cornell 1080p primary vs K1", hit, k1, tag="[tiled]")
+    log(f"[tiled] cornell 1920x1080 primary, {o.shape[0]} rays: tiled {ms:.2f} ms (host clock, "
+        f"one call) against K1: prims equal on "
+        f"{o.shape[0] - ties}, {ties} ties, max |t| err {err:.3g}")
+    run_city_tiled(city, city_cam, city_settings, device)
+    check_small("small city (blocks=3), tiled", small_gpu, small_cpu, city_cam,
+                path_settings(city_settings, SMALL_HW[1], SMALL_HW[0]).replace(tracer="tiled"),
+                device)
+    log(f"[tiled] {time.perf_counter() - t0:.1f} s")
+
+
+def run_bench_trace_phase(device):
+    """[bench_trace]: ``python -m hikari_tpu_torch.bench_trace --rays
+    BENCH_TRACE_RAYS`` (cornell, city-8, city-24, city-551k, all six
+    backends), then ``--stress --backends pallas,tiled,pallas_tiled,scatter``
+    (terrain-1m), in this process, their lines echoed. Every backend must
+    run; each measurement sets the counts to 0 just before its calls and
+    reads them just after: a kernel backend's launches equal its
+    trace_calls (> 0), "bvh" and "tiled" launch and count nothing. Then
+    ``check_k1b_bench`` on the rows that launched K1b. Returns (K1b
+    launches, K1b's kernel-line numbers)."""
+    import contextlib
+    import io
+
+    from hikari_tpu_torch import bench_trace as bt
+
+    t0 = time.perf_counter()
+    rows = []
+    for argv in (["--rays", str(BENCH_TRACE_RAYS)],
+                 ["--stress", "--backends", "pallas,tiled,pallas_tiled,scatter"]):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            res = bt.main(argv)
+        for line in out.getvalue().splitlines() + err.getvalue().splitlines():
+            if line.strip():
+                log(f"[bench_trace] {line}")
+        if res["failed"]:
+            raise AssertionError(f"[bench_trace] {' '.join(argv)}: failed {res['failed']}")
+        rows += res["rows"]
+    for r in rows:
+        kernel = r["method"] in bt.KERNEL_BACKENDS
+        if not (r["launches"] == r["trace_calls"] and (r["trace_calls"] > 0) == kernel):
+            raise AssertionError(f"[bench_trace] {r['scene']}/{r['method']}: launches "
+                                 f"{r['launches']}, trace_calls {r['trace_calls']}")
+    k1b = sum(r["k1b_launches"] for r in rows)
+    if not k1b:
+        raise AssertionError("[bench_trace] no launch in K1b's regime")
+    log(f"[bench_trace] every kernel backend's launches equal its trace_calls; K1b (tables above "
+        f"2,048 triangles) launches {k1b}; {time.perf_counter() - t0:.1f} s")
+    return k1b, check_k1b_bench(rows, device)
+
+
+def check_k1b_bench(rows, device):
+    """[bench_trace] K1b against its twin at the bench's shapes: for every
+    scene whose "bruteforce"/"pallas" rows launched K1b, the kernel and
+    ``closest_hit_reference`` on the card on the packed inputs that
+    ``trace_rays`` gives them (the bench's rays, no max distance,
+    exclusion or range), under the row's tie rule, bit for bit (t, prim,
+    u, v). A row of at most half the bench's rays traced coherent grid
+    rays alone, mostly misses: the last as many rays (random, hitting)
+    join them. The twin takes every k-th of these, so that it tests at
+    most ``K1B_TWIN_PAIRS`` pairs (city-8: all 1,048,576). At city-8's
+    shape: the kernel's CUDA-event ms, the twin's and the bound. Returns
+    (max error, ms, plain ms, bound ms, bound by) at that shape."""
+    import torch
+
+    from hikari_tpu_torch import bench_trace as bt
+    from hikari_tpu_torch.config import F32_MAX
+    from hikari_tpu_torch.scene import compile_scene, to_device
+    from hikari_tpu_torch.trace import closest_hit as ch
+    from hikari_tpu_torch.utils import same_bits
+
+    t0 = time.perf_counter()
+    k1b_rows = [r for r in rows if r["k1b_launches"]]
+    scenes = dict(bt.build_scenes(), **bt.build_scenes(stress=True))
+    timed = None
+    for name in dict.fromkeys(r["scene"] for r in k1b_rows):
+        buffers = to_device(compile_scene(scenes[name]), device)
+        packed = ch.pack_triangles(buffers)
+        P = packed.shape[0]
+        o_all, d_all = bt.make_rays(buffers, BENCH_TRACE_RAYS, device=device)
+        for r in (r for r in k1b_rows if r["scene"] == name):
+            n = r["rays"]
+            o, d = o_all[:n], d_all[:n]
+            if 2 * n <= BENCH_TRACE_RAYS:
+                # The row's rays are coherent grid rays, mostly sky: the
+                # last n (random, inside the scene) are added, so the
+                # table's hits are compared too.
+                o, d = torch.cat([o, o_all[-n:]]), torch.cat([d, d_all[-n:]])
+            step = -(-o.shape[0] * P // K1B_TWIN_PAIRS)
+            o, d = o[::step].contiguous(), d[::step].contiguous()
+            R = o.shape[0]
+            args = (o, d, torch.full((R,), F32_MAX, device=device),
+                    torch.full((R,), -1, dtype=torch.int32, device=device),
+                    torch.zeros((R,), dtype=torch.int32, device=device),
+                    torch.full((R,), buffers.num_tris, dtype=torch.int32, device=device), packed)
+            tie = "bruteforce" if r["method"] == "bruteforce" else "pallas"
+            got, want = ch.closest_hit(*args, tie), ch.closest_hit_reference(*args, tie)
+            label = (f"{name}/{r['method']} K1b, every {step} of the row's {n} rays"
+                     + (f" and the last {n}" if 2 * n <= BENCH_TRACE_RAYS else "")
+                     + f" ({R}) x {P} tris")
+            err = compare(f"[bench_trace] {label}", got, want)
+            if not all(same_bits(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"[bench_trace] {label}: K1b is not bitwise equal to its twin")
+            if name == "city-8" and tie == "pallas":
+                if step != 1:
+                    raise AssertionError("city-8's K1b case must take every ray of its row")
+                torch.cuda.synchronize()
+                ms = cuda_time_ms(lambda: ch.closest_hit(*args), 10)
+                plain = cuda_time_ms(lambda: ch.closest_hit_reference(*args), 1, warmup=0)
+                bound, by = bound_ms(R * P * PAIR_FLOPS, R * 56 + P * 64)
+                timed = (err, ms, plain, bound, by)
+                log(f"[time] K1b at [bench_trace] city-8 ({R} rays x {P} tris): kernel {ms:.4f} "
+                    f"ms, twin {plain:.4f} ms, bound {bound:.4f} ms ({by})")
+        del buffers, packed, o_all, d_all
+        torch.cuda.empty_cache()
+    if timed is None:
+        raise AssertionError("[bench_trace] city-8/pallas launched no K1b")
+    log(f"[bench_trace] K1b bitwise to its twin on {len(k1b_rows)} bench rows; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return timed
+
+
+def grad_rel(a, b):
+    """The relative L2 difference of ``a`` against ``b`` (absolute where
+    ``b`` is 0)."""
+    a, b = a.double().cpu(), b.double().cpu()
+    n = float(b.norm())
+    d = float((a - b).norm())
+    return d / n if n else d
+
+
+def bit_diff(a, b):
+    """(largest |a - b|, entries that differ in their bits) of two tensors."""
+    import torch
+
+    a, b = a.cpu(), b.cpu()
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    diff = (a.double() - b.double()).abs()
+    diff = torch.where(same, 0.0, diff)
+    return float(diff.max()) if diff.numel() else 0.0, int((~same).sum())
+
+
+def run_remat_phase(cornell, cam, arrays, device):
+    """[remat]: from one state (2 forward frames of ``cornell_bench``), one
+    fwd+grad step with ``remat=True``, with ``remat=False`` twice, and with
+    ``channel_remat=True``: loss and every leaf's gradient against the first
+    no-remat step within ``REMAT_FACTOR`` times the larger of the two
+    no-remat steps' own difference and ``REMAT_FLOOR`` (relative L2;
+    ``sun_color`` absolute), peak memory, host ms and device ms of each
+    step, and the closest-hit launches of each step's backward (0 with
+    remat). Then the repeatability of ``cornell_dynamic``: frames 0-3 twice
+    from the initial state, the largest bit difference."""
+    import torch
+
+    from hikari_tpu_torch.bench import bench_config
+    from hikari_tpu_torch.parallel import DIFF_LEAVES, make_train_step, sharding
+    from hikari_tpu_torch.render.pipeline import initial_state, render_frame
+    from hikari_tpu_torch.trace import closest_hit as ch
+
+    t_phase = time.perf_counter()
+    _, _, bench = bench_config("cornell", device)
+    state = initial_state(bench, device)
+    with torch.no_grad():
+        for _ in range(2):
+            _, state = render_frame(cornell, cam, state, bench)
+    target = torch.zeros(bench.output_size + (3,), device=device)
+    real_loss = sharding.render_loss
+    fwd_end = []
+
+    def marked_loss(*args):
+        res = real_loss(*args)
+        fwd_end.append(ch.launches)
+        return res
+
+    def one(label, flags):
+        step = make_train_step(bench.replace(**flags))
+        step(cornell, cam, state, target)  # warm the allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()
+        sharding.render_loss = marked_loss
+        try:
+            t0 = time.perf_counter()
+            loss, grads, _, _ = step(cornell, cam, state, target)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            sharding.render_loss = real_loss
+        k1_fwd, k1_bwd = fwd_end[-1], ch.launches - fwd_end[-1]
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated(device)
+        dev_ms = device_ms(lambda: step(cornell, cam, state, target), 1, warmup=0)
+        if not (k1_fwd == counts["trace_calls"] > 0) or k1_bwd:
+            raise AssertionError(f"[remat] {label}: {counts}, closest-hit launches forward "
+                                 f"{k1_fwd}, backward {k1_bwd}")
+        if not all(bool(torch.isfinite(g).all()) for g in grads.values()):
+            raise AssertionError(f"[remat] {label}: non-finite gradients")
+        log(f"[remat] {label}: fwd+grad {ms:.2f} ms (host, one step), device {dev_ms:.2f} ms "
+            f"(one profiled step); peak memory {peak / 2**30:.3f} GiB; loss {float(loss):.9g}; "
+            f"closest-hit launches forward {k1_fwd} (= trace calls), backward {k1_bwd}")
+        return loss, grads, peak
+
+    runs = {
+        "remat": one("remat=True", dict(remat=True)),
+        "none": one("remat=False", dict(remat=False)),
+        "none2": one("remat=False, again", dict(remat=False)),
+        "channel": one("channel_remat=True", dict(remat=False, channel_remat=True)),
+    }
+
+    def errs(run):
+        loss, grads, _ = run
+        base_loss, base_grads, _ = runs["none"]
+        out = {"loss": abs(float(loss) - float(base_loss)) / abs(float(base_loss))}
+        for k in DIFF_LEAVES:
+            out[k] = (float((grads[k].double() - base_grads[k].double()).norm())
+                      if k == "sun_color" else grad_rel(grads[k], base_grads[k]))
+        return out
+
+    noise = errs(runs["none2"])
+    limit = REMAT_FACTOR * max(max(noise.values()), REMAT_FLOOR)
+    bits = {k: bit_diff(runs["none2"][1][k], runs["none"][1][k]) for k in DIFF_LEAVES}
+    bits["loss"] = bit_diff(runs["none2"][0], runs["none"][0])
+    log(f"[remat] repeatability: two remat=False steps from one state differ by (relative L2; "
+        f"sun_color absolute) " + ", ".join(f"{k} {e:.3g}" for k, e in noise.items()))
+    log("[remat] repeatability: largest |difference| and entries whose bits differ: " + ", ".join(
+        f"{k} {m:.3g} ({n})" for k, (m, n) in bits.items()))
+    for label in ("remat", "channel"):
+        e = errs(runs[label])
+        bad = {k: v for k, v in e.items() if not v <= limit}
+        if bad:
+            raise AssertionError(f"[remat] {label} against remat=False past the limit {limit:.3g}: "
+                                 f"{bad}")
+        log(f"[remat] {label} against remat=False (limit {limit:.3g} = {REMAT_FACTOR} x max(noise, "
+            f"{REMAT_FLOOR})): " + ", ".join(f"{k} {v:.3g}" for k, v in e.items()))
+    peak_r, peak_n = runs["remat"][2], runs["none"][2]
+    if not peak_r < peak_n:
+        raise AssertionError(f"[remat] the remat step's peak {peak_r} is not below remat=False's "
+                             f"{peak_n}")
+    log(f"[remat] peak memory remat {peak_r / 2**30:.3f} GiB < remat=False {peak_n / 2**30:.3f} "
+        f"GiB; channel_remat {runs['channel'][2] / 2**30:.3f} GiB")
+    del runs
+    torch.cuda.empty_cache()
+    repeat_dynamic(arrays, bench, device)
+    log(f"[remat] {time.perf_counter() - t_phase:.1f} s")
+
+
+def repeat_dynamic(arrays, bench, device):
+    """[remat] repeatability of ``cornell_dynamic``: frames 0-3 (moves and
+    orbit included) twice from the initial state on fresh buffers; the
+    largest bit difference of the image and of the state's tensors."""
+    import torch
+
+    from hikari_tpu_torch.io.scenes import cornell_box_scene
+    from hikari_tpu_torch.render.pipeline import initial_state, render_frame
+    from hikari_tpu_torch.scene import SceneUpdater, to_device
+    from hikari_tpu_torch.utils import map_tensors
+
+    settings = dynamic_settings(bench, CORNELL_HW[1], CORNELL_HW[0])
+    runs = []
+    for _ in range(2):
+        up = SceneUpdater(cornell_box_scene(), to_device(arrays, device))
+        state = initial_state(settings, device)
+        with torch.no_grad():
+            for f in range(4):
+                if f:
+                    up.set_transforms(dynamic_moves(f, up.buffers.inst_model.cpu().numpy()))
+                out, state = render_frame(up.buffers, orbit_camera(f, device), state, settings)
+        flat = []
+        map_tensors(flat.append, state)
+        runs.append((out.image, flat, up.buffers.em_surface_area))
+    img = bit_diff(runs[0][0], runs[1][0])
+    st = [bit_diff(a, b) for a, b in zip(runs[0][1], runs[1][1]) if a.is_floating_point()]
+    area = bit_diff(runs[0][2], runs[1][2])
+    log(f"[remat] repeatability: cornell_dynamic frames 0-3 twice from the initial state: image "
+        f"largest |difference| {img[0]:.3g} ({img[1]} entries differ); state "
+        f"{max(m for m, _ in st):.3g} ({sum(n for _, n in st)} entries differ); emissive areas "
+        f"{area[0]:.3g} ({area[1]} differ)")
+
+
+def run_tools_phase(device):
+    """[tools]: ``tools/clip_engagement --size 256`` (cornell and scene) and
+    ``tools/measure_spatial_grads --size 64 -k 2`` on the card, lines echoed;
+    both must finish with finite output."""
+    import contextlib
+    import io
+    import math
+
+    import numpy as np
+
+    from hikari_tpu_torch.tools import clip_engagement, measure_spatial_grads
+
+    t0 = time.perf_counter()
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        clip = clip_engagement.main(["--size", "256"])
+        rows = measure_spatial_grads.main(["--size", "64", "-k", "2"])
+    for line in out.getvalue().splitlines() + err.getvalue().splitlines():
+        if line.strip():
+            log(f"[tools] {line}")
+    bad = [k for k, (loss, rep) in clip.items()
+           if not (math.isfinite(loss) and rep and all(t > 0 for _, t, _ in rep.values()))]
+    bad += [f"spatial_radiance_grads={k}" for k, r in rows.items()
+            if not (np.isfinite(r[0]) and np.isfinite(r[4]).all() and r[3])]
+    if bad:
+        raise AssertionError(f"[tools] non-finite or empty output: {bad}")
+    log(f"[tools] {time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -2048,14 +2559,20 @@ def main():
     check_small("small city (blocks=3), bench settings, scatter", small_gpu, small_cpu, city_cam,
                 bench_settings(city_settings, SMALL_BENCH_HW[1], SMALL_BENCH_HW[0], "scatter"), dev)
 
+    # ---- 4c'. the XLA tiled tracer, then the per-scene trace bench ----
+    run_tiled_phase(cornell, prim_args[:2], city, city_arrays, city_cam, city_settings, small_gpu,
+                    small_cpu, dev)
+    bench_trace_k1b, k1b_bench = run_bench_trace_phase(dev)
+
     # ---- 4d. dynamic scenes: cornell_dynamic, city_stream, the update, the bvh walk ----
     dyn_k1, dyn_k2 = run_dynamic_phase(arrays, city, city_arrays, small_arrays, city_cam, dev,
                                        profile)
 
-    # The closest-hit launches of the main paths with a table larger than
-    # one TPU tile (K1b's regime): none of the paths has one.
-    k1b_launches = sum(x["closest_hit_k1b"] for x in (cornell_launches, bench_launches,
-                                                        city_launches, cb_launches))
+    # The closest-hit launches with a table larger than one TPU tile (K1b's
+    # regime): none of the render paths has one; [bench_trace]'s city and
+    # terrain scenes do.
+    k1b_launches = bench_trace_k1b + sum(x["closest_hit_k1b"] for x in (
+        cornell_launches, bench_launches, city_launches, cb_launches))
 
     # ---- 5. the primitives: kernels vs twins, then the tool ----
     prim_res = prim_cases(dev)
@@ -2093,6 +2610,11 @@ def main():
     bench_counts = run_bench_phase(dev)
     run_train_phase(dev)
 
+    # ---- 12. pass-level remat, repeatability, the fwd+grad tools ----
+    torch.cuda.empty_cache()
+    run_remat_phase(cornell, cam, arrays, dev)
+    run_tools_phase(dev)
+
     if "jax" in sys.modules or "hikari_tpu" in sys.modules:
         raise AssertionError("the port imported jax or hikari_tpu")
 
@@ -2122,11 +2644,11 @@ def main():
             "source": "hikari_tpu_torch/csrc/closest_hit.cu",
             "replaces": "hikari_tpu/trace/pallas_kernel.py:168",
             "launches": k1b_launches,
-            "max_abs_err": err_b,
-            "ms": soup_ms,
-            "plain_ms": soup_plain_ms,
-            "bound_ms": soup_bound,
-            "bound_by": soup_by,
+            "max_abs_err": max(err_b, k1b_bench[0]),
+            "ms": k1b_bench[1],
+            "plain_ms": k1b_bench[2],
+            "bound_ms": k1b_bench[3],
+            "bound_by": k1b_bench[4],
             "library_ms": None,
         },
         {

@@ -3,11 +3,13 @@
 packages.
 
 The port runs eagerly, so a ``RenderSettings`` value selects Python
-branches at call time instead of keying a compiled executable. Fields
-that only steer the JAX package's compilation (``remat``,
-``channel_remat``, ``spatial_taps``, ``stop_after``) are kept for parity
-of the dataclass; ``render_frame`` rejects the options this port does not
-implement yet.
+branches at call time instead of keying a compiled executable. ``remat``
+and ``channel_remat`` are honoured: under autograd each pass (and, with
+``channel_remat``, each direct/emissive channel's taken validation or
+sampling branch) runs under ``torch.utils.checkpoint`` and replays its
+forward's trace hits in the backward (``render/pipeline.py``,
+``trace/api.py remat``). ``spatial_taps`` only steers the JAX package's
+compilation and is kept for parity of the dataclass.
 """
 
 from __future__ import annotations
@@ -92,9 +94,10 @@ class RenderSettings:
     fxaa: bool = False
     emissive_lit: bool = True
 
-    # Closest-hit backend: "auto" / "pallas" / "bruteforce" run the
-    # closest-hit kernel on CUDA tensors and its plain twin on CPU tensors
-    # (trace/api.py); the large-scene backends are not ported yet.
+    # Closest-hit backend (trace/api.py trace_rays): "auto" / "pallas" /
+    # "bruteforce" / "pallas_tiled" / "scatter" run their kernel on CUDA
+    # tensors and its plain twin on CPU tensors; "bvh" and "tiled" are
+    # plain torch on either device.
     tracer: str = "auto"
     bruteforce_max_tris: int = 2048
     max_traversal_steps: int = 0

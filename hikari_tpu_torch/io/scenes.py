@@ -27,6 +27,7 @@ from hikari_tpu_torch.scene.mesh import (
     cube_mesh,
     plane_mesh,
     quad_mesh,
+    terrain_mesh,
     uv_sphere_mesh,
 )
 
@@ -294,6 +295,24 @@ def city_config(width: int = 512, height: int = 512, device=None):
         denoise=True,
     )
     return scene, cam, settings
+
+
+def procedural_terrain(scene: Scene, n: int = 708, size: float = 200.0, seed: int = 3) -> Scene:
+    """Million-triangle stress geometry for the large-scene tracer benches:
+    one displaced-grid terrain instance (2*n^2 triangles) plus four
+    emissive marker spheres. n=708 gives 1,002,528 terrain triangles."""
+    ground = scene.add_material(Material(base_color=(0.35, 0.4, 0.3, 1.0), perceptual_roughness=0.9))
+    lamp = scene.add_material(Material(base_color=(1, 1, 1, 1), emissive=(1.0, 0.9, 0.7, 0.3)))
+    terr = scene.add_mesh(terrain_mesh(n, size=size, height=size * 0.06, seed=seed))
+    scene.add_instance(Instance(terr, ground, _transform((0, 0, 0))))
+    sphere = scene.add_mesh(uv_sphere_mesh(1.0, 12, 6))
+    rng = np.random.default_rng(seed + 1)
+    for _ in range(4):
+        x, z = rng.uniform(-size / 3, size / 3, size=2)
+        scene.add_instance(
+            Instance(sphere, lamp, _transform((float(x), size * 0.08, float(z)), None, (1.0, 1.0, 1.0)))
+        )
+    return scene
 
 
 CONFIGS = {

@@ -49,7 +49,7 @@ def make_train_step(settings: RenderSettings, sharded: bool = False, mesh=None):
     ``new_state`` carry no graph."""
     if sharded or mesh is not None:
         raise NotImplementedError(
-            "the sharded train step is not ported yet (ROADMAP.md queue 1 item 7, 'parallel/')"
+            "the sharded train step is not ported yet (ROADMAP.md queue 1 item 1, 'parallel/')"
         )
 
     def train_step(scene, camera, state, target):

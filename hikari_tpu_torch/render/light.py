@@ -12,6 +12,7 @@ transport is a TPU shortcut that gives the same values at zero velocity.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import replace
 
 import numpy as np
@@ -53,7 +54,7 @@ from hikari_tpu_torch.render.sampling import (
 from hikari_tpu_torch.render.stops import channel_sum
 from hikari_tpu_torch.render.types import GBuffer
 from hikari_tpu_torch.scene.buffers import SceneBuffers
-from hikari_tpu_torch.trace.api import hit_info, occlude_hit_info, trace_rays
+from hikari_tpu_torch.trace.api import hit_info, occlude_hit_info, remat, trace_rays
 from hikari_tpu_torch.utils import (
     basis_apply,
     dot3,
@@ -412,10 +413,16 @@ def direct_lit_pass(
     validate_interval = (
         settings.emissive_validate_interval if emissive_lit else settings.direct_validate_interval
     )
+    val_fn, samp_fn = validation_branch, sampling_branch
+    if settings.channel_remat and torch.is_grad_enabled():
+        # Estimator-chain remat (JAX light.py:599-610): the taken branch
+        # runs again in the backward from its inputs, replaying its hits.
+        val_fn = functools.partial(remat, validation_branch)
+        samp_fn = functools.partial(remat, sampling_branch)
     if frame_number % validate_interval == 0:
-        r, sp_after = validation_branch(r, de_spatial_prev)
+        r, sp_after = val_fn(r, de_spatial_prev)
     else:
-        r = sampling_branch(r, torch.ones((rh, rw), dtype=torch.bool, device=dev))
+        r = samp_fn(r, torch.ones((rh, rw), dtype=torch.bool, device=dev))
         sp_after = de_spatial_prev
     if stopped("restir"):
         return cut(de_spatial_prev, g, r, sp_after)

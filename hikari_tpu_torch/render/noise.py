@@ -4,7 +4,8 @@ The reference embeds 16 prebuilt 64x64 RGBA blue-noise PNGs
 (src/lib.rs:189-219, sampled at light.wgsl:1075-1079 with golden-ratio
 temporal scrambling). The bank is generated procedurally with the JAX
 package's numpy recipe (FFT-shaped white noise, rank-normalized to exact
-uniform [0,1)), so the two packages hold bit-identical banks.
+uniform [0,1)), so the two packages hold bit-identical banks;
+``reference_noise_bank`` loads the reference's own PNGs instead.
 """
 
 from __future__ import annotations
@@ -50,6 +51,27 @@ def blue_noise_bank(
             for _ in range(count)
         ]
     )
+
+
+@functools.lru_cache(maxsize=1)
+def reference_noise_bank(directory: str, count: int = NOISE_TEXTURE_COUNT) -> np.ndarray:
+    """Exact-RNG parity mode (JAX ``reference_noise_bank``): the reference's
+    ``count`` embedded 64x64 RGBA blue-noise textures
+    (``noise/LDR_RGBA_{i}.png`` in ``directory``, src/lib.rs:189-219, loaded
+    non-sRGB) as a (count, 64, 64, 4) float32 bank in [0, 1], so stochastic
+    intermediates can be compared one to one with the reference. The
+    procedural ``blue_noise_bank`` stays the default. Raises
+    FileNotFoundError without the reference checkout."""
+    import os
+
+    from PIL import Image
+
+    planes = []
+    for i in range(count):
+        path = os.path.join(directory, f"LDR_RGBA_{i}.png")
+        img = np.asarray(Image.open(path).convert("RGBA"), dtype=np.float32)
+        planes.append(img / 255.0)
+    return np.stack(planes)
 
 
 def noise_plane(bank: torch.Tensor, frame_number: int, size_hw):

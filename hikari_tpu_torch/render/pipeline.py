@@ -17,6 +17,8 @@ reference does not define.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from hikari_tpu_torch.config import RenderSettings, Taa, UpscaleMode
@@ -39,6 +41,7 @@ from hikari_tpu_torch.render.taa import taa_jasmine
 from hikari_tpu_torch.render.tonemap import inverse_reinhard_luminance, tone_mapping
 from hikari_tpu_torch.render.types import FrameState, GBuffer, RenderOutputs
 from hikari_tpu_torch.scene.buffers import SceneBuffers
+from hikari_tpu_torch.trace.api import remat
 from hikari_tpu_torch.utils import luminance, map_tensors, resolve_device, uv_grid
 
 _RESERVOIRS = (
@@ -88,12 +91,32 @@ def _albedo_at_render_res(albedo, settings: RenderSettings, frame_number: int):
     return deferred_planes((albedo,), settings, frame_number)[0]
 
 
+def _denoise3(direct, direct_var, em, em_var, ind, ind_var, albedo_rr, gbuffer,
+              frame_number: int, settings: RenderSettings):
+    """The three lighting channels through one denoiser each."""
+    return tuple(
+        denoise_channel(rad, var, albedo_rr, gbuffer, frame_number, settings)
+        for rad, var in ((direct, direct_var), (em, em_var), (ind, ind_var))
+    )
+
+
 def _firewall(out, name):
     """Gradient firewall at a pass boundary: every float output passes
     ``clip_gradient`` (identity forward), as in the JAX pipeline."""
     return map_tensors(
         lambda x: clip_gradient(x, 1e4, name) if x.is_floating_point() else x, out
     )
+
+
+def _pass(settings: RenderSettings, name, fn, *args, **kwargs):
+    """One pass, ``fn(*args, **kwargs)``, behind its gradient firewall. With
+    ``settings.remat`` and grad enabled the pass is rematerialized
+    (``trace.api.remat``: JAX ``pipeline.py`` ``ckpt``): its backward runs
+    it again, on the same arguments, instead of keeping its intermediates,
+    and replays its hits."""
+    if settings.remat and torch.is_grad_enabled():
+        return _firewall(remat(functools.partial(fn, **kwargs), *args), name)
+    return _firewall(fn(*args, **kwargs), name)
 
 
 def _truncated(state_in: FrameState, device, *trees):
@@ -136,41 +159,37 @@ def render_frame(
     if settings.reservoir_f16:
         state = state.replace(**{k: decompress_reservoir(getattr(state, k)) for k in _RESERVOIRS})
 
-    gbuffer = _firewall(render_gbuffer(scene, camera, frame_number, settings), "prepass")
+    gbuffer = _pass(settings, "prepass", render_gbuffer, scene, camera, frame_number, settings)
     if stop == "gbuffer" or stop.startswith("gbuffer:"):
         return cut(gbuffer)
-    albedo = _firewall(full_screen_albedo(scene, camera, gbuffer), "albedo")
+    albedo = _pass(settings, "albedo", full_screen_albedo, scene, camera, gbuffer)
     if stop == "albedo":
         return cut(gbuffer, albedo)
 
-    direct_out, direct_var, direct_temporal, de_spatial, bg, _ = _firewall(
-        direct_lit_pass(
-            scene, camera, gbuffer, state.direct_temporal, state.de_spatial, noise_bank,
-            frame_number, settings, emissive_lit=False, render_emissive=True,
-        ),
-        "direct_lit",
+    direct_out, direct_var, direct_temporal, de_spatial, bg, _ = _pass(
+        settings, "direct_lit", direct_lit_pass,
+        scene, camera, gbuffer, state.direct_temporal, state.de_spatial, noise_bank,
+        frame_number, settings, emissive_lit=False, render_emissive=True,
     )
     if stop == "direct" or stop.startswith("direct:"):
         return cut(gbuffer, albedo, direct_out, direct_var, de_spatial)
 
     rh, rw = settings.render_size
     if settings.emissive_lit and scene.num_emissives > 0:
-        em_out, em_var, em_temporal, de_spatial, _, _ = _firewall(
-            direct_lit_pass(
-                scene, camera, gbuffer, state.emissive_temporal, de_spatial, noise_bank,
-                frame_number, settings, emissive_lit=True, render_emissive=False,
-            ),
-            "emissive_lit",
+        em_out, em_var, em_temporal, de_spatial, _, _ = _pass(
+            settings, "emissive_lit", direct_lit_pass,
+            scene, camera, gbuffer, state.emissive_temporal, de_spatial, noise_bank,
+            frame_number, settings, emissive_lit=True, render_emissive=False,
         )
         # "emissive:<stage>" stops inside the emissive pass, before spatial
         # reuse; plain "emissive" after it.
         if stop.startswith("emissive:"):
             return cut(gbuffer, albedo, direct_out, em_out, em_var, de_spatial)
         if settings.emissive_spatial_reuse:
-            em_out, em_var, de_spatial = _firewall(
-                spatial_reuse_pass(scene, camera, gbuffer, em_temporal, de_spatial, em_var,
-                                   frame_number, settings, emissive_lit=True),
-                "emissive_spatial",
+            em_out, em_var, de_spatial = _pass(
+                settings, "emissive_spatial", spatial_reuse_pass,
+                scene, camera, gbuffer, em_temporal, de_spatial, em_var, frame_number, settings,
+                emissive_lit=True,
             )
     else:
         em_out = torch.zeros((rh, rw, 3), device=dev)
@@ -181,21 +200,19 @@ def render_frame(
 
     indirect_spatial = state.indirect_spatial
     if settings.indirect_bounces > 0:
-        ind_out, ind_var, ind_temporal, indirect_spatial, _, _ = _firewall(
-            indirect_lit_pass(
-                scene, camera, gbuffer, state.indirect_temporal, indirect_spatial, noise_bank,
-                frame_number, settings,
-            ),
-            "indirect_lit",
+        ind_out, ind_var, ind_temporal, indirect_spatial, _, _ = _pass(
+            settings, "indirect_lit", indirect_lit_pass,
+            scene, camera, gbuffer, state.indirect_temporal, indirect_spatial, noise_bank,
+            frame_number, settings,
         )
         if stop.startswith("indirect:"):
             # Before spatial reuse, so the delta prices the channel alone.
             return cut(gbuffer, albedo, direct_out, em_out, ind_out)
         if settings.indirect_spatial_reuse:
-            ind_out, ind_var, indirect_spatial = _firewall(
-                spatial_reuse_pass(scene, camera, gbuffer, ind_temporal, indirect_spatial,
-                                   ind_var, frame_number, settings, emissive_lit=False),
-                "indirect_spatial",
+            ind_out, ind_var, indirect_spatial = _pass(
+                settings, "indirect_spatial", spatial_reuse_pass,
+                scene, camera, gbuffer, ind_temporal, indirect_spatial, ind_var, frame_number,
+                settings, emissive_lit=False,
             )
     else:
         ind_out = torch.zeros((rh, rw, 3), device=dev)
@@ -207,14 +224,12 @@ def render_frame(
     # ---- POST PROCESS ----
     if settings.denoise:
         # The reference dispatches one denoise pipeline per channel
-        # (post_process.rs:1190); the JAX package vmaps the three.
-        albedo_rr = _albedo_at_render_res(albedo, settings, frame_number)
-        direct_d, em_d, ind_d = (
-            clip_gradient(
-                denoise_channel(rad, var, albedo_rr, gbuffer, frame_number, settings), 1e4,
-                "denoise",
-            )
-            for rad, var in ((direct_out, direct_var), (em_out, em_var), (ind_out, ind_var))
+        # (post_process.rs:1190); the JAX package vmaps the three, under one
+        # remat.
+        direct_d, em_d, ind_d = _pass(
+            settings, "denoise", _denoise3, direct_out, direct_var, em_out, em_var, ind_out,
+            ind_var, _albedo_at_render_res(albedo, settings, frame_number), gbuffer,
+            frame_number, settings,
         )
     else:
         direct_d, em_d, ind_d = direct_out, em_out, ind_out

@@ -221,3 +221,47 @@ def uv_sphere_mesh(radius: float = 1.0, sectors: int = 36, stacks: int = 18) -> 
             if i != stacks - 1:
                 indices.append([a + 1, b, b + 1])
     return Mesh(positions, normals, uvs, indices)
+
+
+def terrain_mesh(n: int = 256, size: float = 1.0, height: float = 0.15, seed: int = 3) -> Mesh:
+    """A displaced (n+1)x(n+1) grid in the XZ plane facing +Y: 2*n^2
+    triangles of fBm-style terrain (a sum of random sinusoids, vectorized
+    and deterministic). The million-triangle stress geometry of the
+    large-scene tracer benches; n=708 gives 1,002,528 triangles."""
+    rng = np.random.default_rng(seed)
+    xs = np.linspace(-0.5, 0.5, n + 1, dtype=np.float64) * size
+    X, Z = np.meshgrid(xs, xs, indexing="ij")  # (n+1, n+1)
+
+    Y = np.zeros_like(X)
+    amp, freq = 1.0, 2.0 * np.pi / size
+    for _ in range(6):  # octaves
+        for _ in range(3):  # random directions per octave
+            kx, kz = rng.normal(size=2)
+            k = np.hypot(kx, kz) or 1.0
+            phase = rng.uniform(0, 2 * np.pi)
+            Y += amp * np.sin((kx * X + kz * Z) * freq / k + phase)
+        amp *= 0.5
+        freq *= 2.0
+    Y *= height / max(np.abs(Y).max(), 1e-9)
+
+    positions = np.stack([X, Y, Z], axis=-1).reshape(-1, 3)
+
+    # Vertex normals from central-difference height gradients.
+    dy_dx = np.gradient(Y, axis=0) / (size / n)
+    dy_dz = np.gradient(Y, axis=1) / (size / n)
+    normals = np.stack([-dy_dx, np.ones_like(Y), -dy_dz], axis=-1).reshape(-1, 3)
+    normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+
+    U, V = np.meshgrid(np.linspace(0, 1, n + 1), np.linspace(0, 1, n + 1), indexing="ij")
+    uvs = np.stack([U, V], axis=-1).reshape(-1, 2)
+
+    # Two triangles per cell (+Y winding: counter-clockwise seen from above).
+    ii, jj = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    v00 = (ii * (n + 1) + jj).ravel()
+    v10 = v00 + (n + 1)
+    v01 = v00 + 1
+    v11 = v10 + 1
+    tris = np.concatenate(
+        [np.stack([v00, v01, v11], axis=-1), np.stack([v00, v11, v10], axis=-1)], axis=0
+    ).astype(np.int32)
+    return Mesh(positions, normals, uvs, tris)

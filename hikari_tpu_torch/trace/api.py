@@ -14,19 +14,30 @@ plain twin for CPU tensors:
   becomes an item, each item block is tested against its one cluster, and
   a segment-min picks each ray's winner.
 
-A fourth search, the JAX package's lockstep BVH walk (``method="bvh"``,
-``_trace_bvh``), walks the stitched node graph that
-``scene/update.update_transforms`` refits. It is plain torch on either
-device, as it is plain XLA in the JAX package, and no main path takes it.
+Two more searches are plain XLA in the JAX package and plain torch here,
+on either device; no main path takes them:
+
+* ``method="bvh"`` (``_trace_bvh``), the lockstep BVH walk over the
+  stitched node graph that ``scene/update.update_transforms`` refits;
+* ``method="tiled"`` (``_trace_tiled``, ``trace/tiled.trace_tiled``), the
+  XLA tile-binned cluster tracer: octant-sorted 512-ray tiles walk their
+  512-triangle clusters near to far in lockstep, densely.
 
 The searches are not differentiable (they return integer hit ids plus
 detached (t, u, v)); ``refine_hit`` / ``hit_info`` recompute (t, u, v) at
 the fixed hit triangle from ``scene.tri_world``, so gradients reach the
 vertices through them, as in the JAX package.
+
+Under pass-level remat (``render/pipeline.py``) a pass runs twice: once in
+the forward and once in the backward, to rebuild what its backward needs.
+``trace_tape`` records every hit of the first run and replays them in the
+same order in the second, so the backward searches nothing (the JAX
+package's remat policy saves the ``"trace_hits"`` for the same reason).
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import torch
@@ -38,22 +49,83 @@ from hikari_tpu_torch.trace.closest_hit import closest_hit, pack_triangles
 from hikari_tpu_torch.trace.intersect import intersects_aabb, intersects_triangle
 from hikari_tpu_torch.trace.scatter import CLUSTER as SCATTER_CLUSTER
 from hikari_tpu_torch.trace.scatter import trace_scatter
-from hikari_tpu_torch.trace.tiled import TILE_R
+from hikari_tpu_torch.trace.tiled import TILE_R, trace_tiled
 from hikari_tpu_torch.trace.tile_walk import pack_clusters, trace_tile_walk
 from hikari_tpu_torch.utils import safe_normalize, take_rows
 
 # trace_rays calls that went to a kernel-backed search with rays on a CUDA
 # device (each is one kernel launch, so a run can check every trace went
-# through a kernel). The BVH walk launches no kernel of its own and is not
-# counted.
+# through a kernel). The BVH walk and the tiled tracer launch no kernel of
+# their own and are not counted, nor is a hit replayed from a tape.
 trace_calls = 0
 
-# Backends of the JAX package that have no port yet, with the ROADMAP item
-# that ports them.
-_NOT_PORTED = {
-    "tiled": "queue 1, 'Large-scene leftovers' (trace/tiled.py trace_tiled)",
-}
-_SEARCH_METHODS = ("auto", "auto_xla", "pallas", "bruteforce", "pallas_tiled", "scatter", "bvh")
+_SEARCH_METHODS = ("auto", "auto_xla", "pallas", "bruteforce", "pallas_tiled", "scatter", "bvh",
+                   "tiled")
+_PLAIN_METHODS = ("bvh", "tiled")  # no kernel: plain torch on either device
+
+class TraceTape:
+    """The hits of one remat region's trace_rays calls, in call order. Its
+    first run records them; every later run replays them from the start."""
+
+    def __init__(self):
+        self.hits: list = []
+        self.recorded = False
+        self.pos = 0
+
+
+_tapes: list = []  # the tapes of the regions being run, outermost first
+
+
+@contextmanager
+def trace_tape(tape: TraceTape):
+    """Run a remat region under ``tape``: the first time, every trace_rays
+    call inside records its hit (and searches, unless an enclosing region
+    is replaying); every later time, the calls return the recorded hits in
+    order and search nothing."""
+    replay = tape.recorded
+    tape.pos = 0
+    _tapes.append((tape, replay))
+    try:
+        yield
+    finally:
+        _tapes.pop()
+        tape.recorded = True
+
+
+def remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): the
+    forward keeps no intermediate of ``fn`` for the backward, which runs
+    ``fn`` again to rebuild them (JAX ``jax.checkpoint``). A ``trace_tape``
+    around each run records the forward's hits and replays them, so the
+    rerun searches nothing and counts no trace call; the port draws no
+    torch random numbers, so the rerun computes what the forward did."""
+    from torch.utils.checkpoint import checkpoint
+
+    tape = TraceTape()
+
+    def run(*a):
+        with trace_tape(tape):
+            return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
+def _replayed_hit():
+    """The next hit of the innermost replaying tape, or None."""
+    for tape, replay in reversed(_tapes):
+        if replay:
+            if tape.pos >= len(tape.hits):
+                raise RuntimeError("remat replay: more trace_rays calls than the forward made")
+            hit = tape.hits[tape.pos]
+            tape.pos += 1
+            return hit
+    return None
+
+
+def _record_hit(hit):
+    for tape, replay in _tapes:
+        if not replay:
+            tape.hits.append(hit)
 
 
 @dataclass(frozen=True)
@@ -104,8 +176,11 @@ def trace_rays(
     (``_trace_bvh``) in plain torch on either device, over the node graph
     ``node_min``/``node_max`` that ``scene.update.update_transforms``
     refits; it makes one host sync per step, takes no kernel and does not
-    count in ``trace_calls``. "tiled" is not ported yet and raises
-    NotImplementedError.
+    count in ``trace_calls``. "tiled" is the JAX package's XLA tile-binned
+    tracer (``_trace_tiled``) in plain torch on either device: rays sorted
+    by direction octant into 512-ray tiles, each tile walking its
+    512-triangle clusters near to far, one host sync a step; it takes no
+    kernel and does not count in ``trace_calls`` either.
 
     On the card "scatter" does not check its plan's cluster ids on the host
     (that would sync every call): an item block naming a cluster outside
@@ -121,12 +196,18 @@ def trace_rays(
     (K3) applies that rule within each cluster, then keeps the first
     cluster among equal t. "bruteforce" keeps the lowest prim among equal
     t, as the JAX ``_trace_bruteforce`` does; "bvh" keeps the first hit
-    its walk meets among equal t, as the JAX ``_trace_bvh`` does."""
+    its walk meets among equal t, as the JAX ``_trace_bvh`` does; "tiled"
+    keeps, within a cluster, the first column among equal t (the lowest
+    prim) and, across clusters, the cluster its tile visited first (an
+    update needs a strictly nearer t), as the JAX ``trace_tiled`` does.
+
+    Inside a remat region (``trace_tape``) a replaying run returns the
+    recorded hit of the same call and searches nothing."""
     global trace_calls
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"trace method {method!r} is not ported yet (ROADMAP.md {_NOT_PORTED[method]})"
-        )
+    replayed = _replayed_hit() if _tapes else None
+    if replayed is not None:
+        _record_hit(replayed)
+        return replayed
     if method not in _SEARCH_METHODS:
         raise ValueError(f"unknown trace method {method!r}")
     if method in ("auto", "auto_xla"):
@@ -147,9 +228,12 @@ def trace_rays(
     lo = per_ray(range_lo, 0, torch.int32)
     hi = per_ray(range_hi, scene.num_tris, torch.int32)
 
-    if dev.type == "cuda" and R and method != "bvh":
+    if dev.type == "cuda" and R and method not in _PLAIN_METHODS:
         trace_calls += 1
-    if method == "bvh":
+    if method == "tiled":
+        early = per_ray(early_distance, 0.0, torch.float32)
+        t, prim, u, v = _trace_tiled(scene, o, d, maxd, early, excl, lo, hi)
+    elif method == "bvh":
         early = per_ray(early_distance, 0.0, torch.float32)
         t, prim, u, v = _trace_bvh(scene, o, d, maxd, early, excl, lo, hi, max_steps)
     elif method == "pallas_tiled":
@@ -162,13 +246,16 @@ def trace_rays(
         tie = "bruteforce" if method == "bruteforce" else "pallas"
         t, prim, u, v = closest_hit(o, d, maxd, excl, lo, hi, pack_triangles(scene), tie)
     inst = torch.where(prim >= 0, scene.tri_inst[prim.clamp(min=0)], -1).to(torch.int32)
-    return Hit(
+    hit = Hit(
         t=t.reshape(shape),
         prim=prim.reshape(shape),
         inst=inst.reshape(shape),
         u=u.reshape(shape),
         v=v.reshape(shape),
     )
+    if _tapes:
+        _record_hit(hit)
+    return hit
 
 
 def tile_cluster_rule(num_tris: int) -> tuple[int, bool]:
@@ -244,6 +331,53 @@ def _trace_tile_walk(scene: SceneBuffers, o, d, maxd, early, excl, lo, hi):
     return out
 
 
+def octant_order(d):
+    """The stable permutation that sorts rays by direction octant."""
+    key = (
+        (d[:, 0] < 0).to(torch.int32) * 4
+        + (d[:, 1] < 0).to(torch.int32) * 2
+        + (d[:, 2] < 0).to(torch.int32)
+    )
+    return torch.argsort(key, stable=True)
+
+
+def tiled_inputs(o, d, maxd, early, excl, lo, hi):
+    """The rays of ``_trace_tiled`` in tile order: (order, [o, d, maxd,
+    early, excl, lo, hi] sorted by direction octant (stable; not the tile
+    walk's Morton order) and padded to whole tiles with inert rays (o 0,
+    d 1, maxd 0, early 0, excl -1, lo 0, hi 0: no cluster entry, never
+    open)). Tiles are independent, so any subset of whole tiles traces to
+    the same hits."""
+    R = o.shape[0]
+    order = octant_order(d)
+    pad = -(-R // TILE_R) * TILE_R - R
+
+    def tiles(x, fill):
+        x = x[order]
+        if pad:
+            x = torch.cat([x, torch.full((pad,) + x.shape[1:], fill, dtype=x.dtype, device=x.device)])
+        return x.contiguous()
+
+    fills = (0.0, 1.0, 0.0, 0.0, -1, 0, 0)
+    return order, [tiles(x, f) for x, f in zip((o, d, maxd, early, excl, lo, hi), fills)]
+
+
+def _trace_tiled(scene: SceneBuffers, o, d, maxd, early, excl, lo, hi):
+    """The JAX ``_trace_tiled``: the rays in tile order (``tiled_inputs``),
+    ``trace/tiled.trace_tiled``, and the hits back in ray order. A caller
+    that wants the walk's steps and clusters tested per tile calls those
+    two itself."""
+    R = o.shape[0]
+    order, rays = tiled_inputs(o, d, maxd, early, excl, lo, hi)
+    t, prim, u, v, _, _ = trace_tiled(scene, *rays)
+    out = []
+    for x in (t, prim, u, v):
+        y = torch.empty((R,), dtype=x.dtype, device=x.device)
+        y[order] = x[:R]
+        out.append(y)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Stackless BVH walk (vectorized lockstep)
 # ---------------------------------------------------------------------------
@@ -260,12 +394,7 @@ def _trace_bvh(scene: SceneBuffers, o, d, maxd, early, excl, lo, hi, max_steps: 
     R = o.shape[0]
     if R <= BVH_RAY_CHUNK:
         return _trace_bvh_chunk(scene, o, d, maxd, early, excl, lo, hi, max_steps)
-    key = (
-        (d[:, 0] < 0).to(torch.int32) * 4
-        + (d[:, 1] < 0).to(torch.int32) * 2
-        + (d[:, 2] < 0).to(torch.int32)
-    )
-    order = torch.argsort(key, stable=True)
+    order = octant_order(d)
     # The last chunk is filled with the JAX package's inert rays (maxd = 0,
     # hi = 0: they never hit). They can lengthen that chunk's walk, and a
     # finished ray re-tests the last node on every step, so they stay.

@@ -1,21 +1,34 @@
-"""Phase 1 of the large-scene tracer: per-tile cluster entry distances —
-the port of ``hikari_tpu.trace.tiled`` (``_cluster_bounds``,
-``tile_cluster_entries``, ``safe_inv_dir``), in plain torch.
+"""The XLA tile-binned cluster tracer — the port of ``hikari_tpu.trace.tiled``
+(``_cluster_bounds``, ``_packed_tris``, ``tile_cluster_entries``,
+``safe_inv_dir``, ``trace_tiled``), in plain torch on either device.
 
 Triangles are grouped into clusters of ``cluster`` consecutive primitives
 (consecutive in the compiled buffer means BVH depth-first leaf order, so
-clusters are spatially tight). Rays come in tiles of ``TILE_R``; each ray
-slab-tests every cluster AABB, and each tile keeps, per cluster, the
-nearest entry over its rays. The tile walk (``trace/tile_walk.py``) then
-visits a tile's clusters near to far.
+clusters are spatially tight). Rays come in tiles of ``TILE_R``.
+
+Phase 1 (``tile_cluster_entries``): each ray slab-tests every cluster
+AABB, and each tile keeps, per cluster, the nearest entry over its rays.
+The tile-walk kernel (``trace/tile_walk.py``) and phase 2 below then
+visit a tile's clusters near to far.
+
+Phase 2 (``trace_tiled``, ``trace_rays(method="tiled")``): clusters of
+``CLUSTER`` = 512. Step j tests every still-active tile's rays against
+its j-th nearest cluster, densely; a tile stays active while its next
+cluster is entered and one of its rays could still take a hit there.
+Every ray of an active tile is updated, finished or not, as in the JAX
+package: only the tile's activity reads the per-ray tests. Among equal t
+the first column of a cluster wins (the lowest prim), and across
+clusters the one visited first (the update takes a strictly nearer t).
 """
 
 from __future__ import annotations
 
 import torch
 
-from hikari_tpu_torch.config import F32_MAX
+from hikari_tpu_torch.config import F32_EPSILON, F32_MAX
+from hikari_tpu_torch.utils import dot3_ordered
 
+CLUSTER = 512  # triangles per cluster of phase 2
 TILE_R = 512  # rays per tile
 # Elements of one (rays, clusters, 3) slab temporary per chunk of phase 1
 # (2^26 f32 = 256 MB).
@@ -39,6 +52,30 @@ def cluster_bounds(scene, cluster: int):
     cmin = torch.where(vmask, tmin, F32_MAX).amin(dim=1)
     cmax = torch.where(vmask, tmax, -F32_MAX).amax(dim=1)
     return cmin, cmax, vmask[..., 0].any(dim=1)
+
+
+def packed_tris(scene):
+    """(Pp, 14) plane/dual-basis rows n eu ev cn cu cv valid inst (JAX
+    ``_packed_tris``), padded with zero rows to whole clusters of
+    ``CLUSTER``: a padding row is invalid."""
+    P = scene.tri_n.shape[0]
+    packed = torch.cat(
+        [
+            scene.tri_n.detach(),
+            scene.tri_eu.detach(),
+            scene.tri_ev.detach(),
+            scene.tri_cn.detach()[:, None],
+            scene.tri_cu.detach()[:, None],
+            scene.tri_cv.detach()[:, None],
+            scene.tri_valid.to(torch.float32)[:, None],
+            scene.tri_inst.to(torch.float32)[:, None],
+        ],
+        dim=1,
+    )
+    Pp = -(-P // CLUSTER) * CLUSTER
+    if Pp != P:
+        packed = torch.cat([packed, packed.new_zeros((Pp - P, 14))])
+    return packed
 
 
 def safe_inv_dir(d):
@@ -95,3 +132,127 @@ def tile_cluster_entries(cmin, cmax, cvalid, o, inv_d, maxd, lo=None, hi=None,
         ray_maxent[s:e] = torch.where(hit, entry, -1.0).amax(dim=1)
         entries[t0:t1] = torch.where(hit, entry, F32_MAX).reshape(t1 - t0, TILE_R, L).amin(dim=1)
     return entries, ray_maxent
+
+
+# Elements of one (rays, CLUSTER) temporary of phase 2 per chunk of tiles
+# (2^26 f32 = 256 MB; the ordered dot products hold three times that).
+TEST_CHUNK_ELEMS = 1 << 26
+
+
+def _pair_dot(x, y):
+    """(A, R, 3) rays against (A, C, 3) rows -> (A, R, C): the three
+    products summed left to right (``utils.dot3_ordered``), so both devices
+    give the same bits."""
+    return dot3_ordered(x[:, :, None, :], y[:, None, :, :])
+
+
+def _test_tiles(rows, prim0, o, d, bt, maxd, excl, lo, hi):
+    """One dense step (JAX ``test_cluster``) for A tiles: each tile's R rays
+    (``o``/``d`` (A, R, 3), the rest (A, R)) against its cluster's C rows
+    (``rows`` (A, C, 14), first prim id ``prim0`` (A,) f32). Returns the
+    step's best (t, prim, u, v) per ray, each (A, R): the first column
+    among equal t, t = F32_MAX where no row passes."""
+    n, eu, ev = rows[..., 0:3], rows[..., 3:6], rows[..., 6:9]
+    cn, cu, cv = rows[:, None, :, 9], rows[:, None, :, 10], rows[:, None, :, 11]
+    vmask, inst = rows[:, None, :, 12], rows[:, None, :, 13]
+    prim_id = (prim0[:, None] + torch.arange(rows.shape[1], dtype=torch.float32,
+                                             device=o.device))[:, None, :]
+    dn = _pair_dot(d, n)
+    on = _pair_dot(o, n)
+    deu = _pair_dot(d, eu)
+    oeu = _pair_dot(o, eu)
+    dev_ = _pair_dot(d, ev)
+    oev = _pair_dot(o, ev)
+    flat = dn.abs() < F32_EPSILON
+    t = (cn - on) / torch.where(flat, 1.0, dn)
+    u = (oeu - cu) + t * deu
+    v = (oev - cv) + t * dev_
+    ok = (
+        (vmask > 0.5)
+        & ~flat
+        & (t > F32_EPSILON)
+        & (u >= 0.0)
+        & (v >= 0.0)
+        & (u + v <= 1.0)
+        & (t < bt[..., None])
+        & (t < maxd[..., None])
+        & (inst != excl[..., None])
+        & (prim_id >= lo[..., None])
+        & (prim_id < hi[..., None])
+    )
+    tm = torch.where(ok, t, F32_MAX)
+    j = torch.argmin(tm, dim=2, keepdim=True)  # the first minimum
+    prim_id = prim_id.expand_as(tm)
+    return tuple(x.gather(2, j)[..., 0] for x in (tm, prim_id, u, v))
+
+
+def trace_tiled(scene, o, d, maxd, early, excl, lo, hi):
+    """Closest hit of (R,) rays, R a multiple of ``TILE_R`` (the caller,
+    ``trace/api.py``, sorts and pads): the JAX ``trace_tiled``. Returns
+    (t, prim i32, u, v, steps, tested): a miss has t = min(maxd, F32_MAX)
+    and prim -1; ``steps`` is the number of walk steps and ``tested`` (T,)
+    the clusters each tile tested.
+
+    The JAX package updates every tile at each step, masked by its
+    activity; here each step gathers the active tiles, tests them and
+    writes their rays back, which gives the same values. One host sync a
+    step reads whether any tile is still active."""
+    R = o.shape[0]
+    if R % TILE_R:
+        raise ValueError(f"trace_tiled: {R} rays is not a multiple of {TILE_R}")
+    T = R // TILE_R
+    dev = o.device
+    cmin, cmax, cvalid = cluster_bounds(scene, CLUSTER)
+    L = cmin.shape[0]
+    # The prim id rides in f32, as in the JAX package.
+    if L * CLUSTER >= 2**24:
+        raise ValueError("trace_tiled: f32 prim ids are exact only below 2^24 prims")
+    rows_of = packed_tris(scene).reshape(L, CLUSTER, 14)
+
+    # ---- phase 1: per-tile cluster entry distances ----
+    entry_min, ray_maxent = tile_cluster_entries(
+        cmin, cmax, cvalid, o, safe_inv_dir(d), maxd, lo, hi, cluster=CLUSTER
+    )
+    entry_sorted, order = torch.sort(entry_min, dim=1, stable=True)  # (T, L) near to far
+
+    def tiled(x):
+        return x.reshape((T, TILE_R) + x.shape[1:])
+
+    ray_maxent, early_t, maxd_t = tiled(ray_maxent), tiled(early), tiled(maxd)
+    o_t, d_t = tiled(o), tiled(d)
+    excl_t, lo_t, hi_t = (tiled(x.to(torch.float32)) for x in (excl, lo, hi))
+
+    # ---- phase 2: the near-to-far cluster walk ----
+    bt = tiled(torch.clamp(maxd, max=F32_MAX)).clone()
+    bp = torch.full((T, TILE_R), -1.0, device=dev)
+    bu = torch.zeros((T, TILE_R), device=dev)
+    bv = torch.zeros((T, TILE_R), device=dev)
+    tested = torch.zeros((T,), dtype=torch.int32, device=dev)
+    chunk = max(1, TEST_CHUNK_ELEMS // (TILE_R * CLUSTER))
+    steps = 0
+    for j in range(L):
+        # JAX _tile_active: the next cluster exists, is entered, and a ray
+        # that has not stopped early could still take a hit in it.
+        e_j = entry_sorted[:, j]
+        done_early = (bp >= 0) & (bt < early_t)
+        ray_open = ~done_early & (bt > e_j[:, None]) & (ray_maxent >= e_j[:, None])
+        ids = ((e_j < F32_MAX) & ray_open.any(dim=1)).nonzero()[:, 0]
+        if ids.numel() == 0:
+            break
+        steps += 1
+        tested[ids] += 1
+        cid = order[ids, j]
+        for c0 in range(0, ids.numel(), chunk):
+            tid, cc = ids[c0:c0 + chunk], cid[c0:c0 + chunk]
+            bt_c, bp_c, bu_c, bv_c = bt[tid], bp[tid], bu[tid], bv[tid]
+            tj, pj, uj, vj = _test_tiles(
+                rows_of[cc], cc.to(torch.float32) * CLUSTER, o_t[tid], d_t[tid], bt_c,
+                maxd_t[tid], excl_t[tid], lo_t[tid], hi_t[tid],
+            )
+            better = tj < bt_c
+            bt[tid] = torch.where(better, tj, bt_c)
+            bp[tid] = torch.where(better, pj, bp_c)
+            bu[tid] = torch.where(better, uj, bu_c)
+            bv[tid] = torch.where(better, vj, bv_c)
+    return (bt.reshape(R), bp.reshape(R).to(torch.int32), bu.reshape(R), bv.reshape(R),
+            steps, tested)

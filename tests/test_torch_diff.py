@@ -205,7 +205,7 @@ def test_train_step_zeros_for_unread_leaf(setup, monkeypatch):
 
 
 def test_sharded_step_raises(setup):
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 1, 'parallel/'"):
         make_train_step(setup[3], sharded=True)
 
 

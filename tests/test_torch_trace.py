@@ -276,19 +276,18 @@ def test_soup_matches_jax(soup):
 
 @pytest.mark.parametrize("method", ["tiled", "bvh", "scatter"])
 def test_unported_backends_raise(cornell, method):
-    """"tiled" is not ported and raises. "bvh" and "scatter" are ported:
-    they return the exact closest hits, those of the brute-force search."""
+    """Every backend of the JAX package is ported: "tiled", "bvh" and
+    "scatter" return the exact closest hits, those of the brute-force
+    search; an unknown method raises."""
     _, tb = cornell
     o, d = _rays(8, 7)
     args = (tb, torch.from_numpy(o), torch.from_numpy(d))
-    if method != "tiled":
-        got = tapi.trace_rays(*args, method=method)
-        want = tapi.trace_rays(*args, method="bruteforce")
-        assert bool((want.prim >= 0).any())
-        assert torch.equal(got.prim, want.prim) and torch.equal(got.t, want.t)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.trace_rays(*args, method=method)
+    got = tapi.trace_rays(*args, method=method)
+    want = tapi.trace_rays(*args, method="bruteforce")
+    assert bool((want.prim >= 0).any())
+    assert torch.equal(got.prim, want.prim) and torch.equal(got.t, want.t)
+    with pytest.raises(ValueError, match="unknown trace method"):
+        tapi.trace_rays(*args, method=method + "_x")
 
 
 def test_refine_and_hit_info_match_jax(cornell):
