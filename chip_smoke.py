@@ -142,6 +142,21 @@ Phases, each reported on its own line:
      ``cornell_dynamic`` frames 0-3 run twice from one state).
   15. [tools]: ``tools/clip_engagement --size 256`` and
      ``tools/measure_spatial_grads --size 64 -k 2`` on the card, finite.
+  16. [sharded]: the parallel layer, ranks that share the card over gloo
+     (``tools/sharded_smoke.py``): (s1) ``make_sharded_render`` on the
+     bench frame at 1920x1080 (spatial reuse on), 2 ranks, 4 frames, the
+     halo denoiser off and on, against the unsharded frames (>= 99% of
+     pixels within 1e-3; bitwise pixels and max abs printed), each rank's
+     closest-hit launches = its trace calls > 0, the rays summed over the
+     ranks = the unsharded frames'; (s2) the sharded train step, 2 ranks,
+     2 steps, remat off and on, within the [grad check] limits, 0
+     backward launches; (s3) ``shard_tracing`` on the 1080p cornell rays
+     (K1, bitwise) and the city's (c) rays (K2, bitwise but for counted
+     ties); (s4) 4 ranks: a frame on a 2x2 tile mesh and a
+     ``make_multihost_train_step`` step on the (2, 2) host mesh at 512x512.
+     Per case and rank: host ms/frame, peak memory, collective calls,
+     bytes and ms by kind (halo, gather, reduce). Then
+     ``python -m hikari_tpu_torch.bench_scaling --procs 2``.
   Each of 8-11 sets the counts to 0 just before each run and requires
   every trace of its main paths to go through the kernel of that path.
 Every kernel case has a tie case: one triangle duplicated at prims 1, 4 and
@@ -2306,6 +2321,27 @@ def run_tools_phase(device):
     log(f"[tools] {time.perf_counter() - t0:.1f} s")
 
 
+def run_sharded_phase(city_arrays, city_cam, smi):
+    """[sharded] (s1)-(s4) (``tools/sharded_smoke.phase``) on ranks that
+    share cuda:0 over gloo (NCCL takes one rank a GPU), then
+    ``bench_scaling --procs 2``. Any failed check raises."""
+    from hikari_tpu_torch.tools import sharded_smoke
+
+    t0 = time.perf_counter()
+    log(f"[sharded] ranks share cuda:0, backend gloo (NCCL takes one rank a GPU); one card "
+        f"measures no scaling; nvidia-smi: {smi}")
+    launches = sharded_smoke.phase("cuda:0", city_arrays, city_cam, log)
+    log(f"[sharded] closest-hit and tile-walk launches over the ranks: {launches}")
+    t1 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "hikari_tpu_torch.bench_scaling", "--procs", "2"],
+                         capture_output=True, text=True, timeout=600)
+    if run.returncode:
+        raise AssertionError(f"bench_scaling failed:\n{run.stdout[-2000:]}{run.stderr[-4000:]}")
+    log(f"[sharded] bench_scaling --procs 2 ({time.perf_counter() - t1:.1f} s): "
+        f"{run.stdout.strip().splitlines()[-1]}")
+    log(f"[sharded] {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     import torch
 
@@ -2614,6 +2650,10 @@ def main():
     torch.cuda.empty_cache()
     run_remat_phase(cornell, cam, arrays, dev)
     run_tools_phase(dev)
+
+    # ---- 13. the parallel layer: ranks sharing the card ----
+    torch.cuda.empty_cache()
+    run_sharded_phase(city_arrays, city_cam, smi)
 
     if "jax" in sys.modules or "hikari_tpu" in sys.modules:
         raise AssertionError("the port imported jax or hikari_tpu")

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from hikari_tpu_torch.utils import basis_apply, dot3_ordered, resolve_device
+from hikari_tpu_torch.utils.block import current
 
 
 def look_at_transform(eye, target, up=(0.0, 1.0, 0.0)) -> np.ndarray:
@@ -103,16 +104,14 @@ class Camera:
         return self.world_from_view[:3, 3]
 
     def pixel_rays(self, size_hw, jitter=None):
-        """Primary rays through (jittered) pixel centers. ``jitter``: (2,)
-        host offset in pixel units. Returns (origins (h,w,3), directions
-        (h,w,3)) in world space."""
+        """Primary rays through (jittered) pixel centers of an image of
+        ``size_hw``, at the pixels of the frame's block (``utils.block``:
+        the whole image outside a sharded frame). ``jitter``: (2,) host
+        offset in pixel units. Returns (origins, directions), each
+        (block h, block w, 3), in world space."""
         h, w = size_hw
         dev = self.device
-        ys, xs = torch.meshgrid(
-            torch.arange(h, dtype=torch.float32, device=dev),
-            torch.arange(w, dtype=torch.float32, device=dev),
-            indexing="ij",
-        )
+        ys, xs = current().coords(size_hw, dev, torch.float32)
         px = xs + 0.5
         py = ys + 0.5
         if jitter is not None:

@@ -6,7 +6,11 @@ with step sizes 8/4/2/1, dispatched per lighting channel by
 accumulation stays disabled, as in the reference.
 
 Every à-trous tap is a static pixel offset: the filter is shifts and
-masked weighted sums, differentiable in the irradiance.
+masked weighted sums, differentiable in the irradiance. The taps come
+from a transport, ``tap(name, dy, dx) -> (tap, valid)`` (JAX
+``atrous_level``): ``dense_tap``, whole-image shifts, which a sharded frame
+reads from the gathered image, or the halo exchange of
+``parallel/halo.denoise_channel_sharded``. One body, two transports.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from hikari_tpu_torch.render.light import (
 )
 from hikari_tpu_torch.render.types import GBuffer
 from hikari_tpu_torch.utils import ATROUS_KERNEL, luminance, safe_sqrt0
+from hikari_tpu_torch.utils.block import current
 
 _OFFSETS = [(-1, -1), (0, -1), (1, -1), (-1, 0), (1, 0), (-1, 1), (0, 1), (1, 1)]
 
@@ -35,14 +40,16 @@ def deferred_planes(planes, settings: RenderSettings, frame_number: int):
     integer upscale ratio a strided view, for a fractional one (FSR1) a
     nearest sample at the deferred uv."""
     ratio = settings.upscale_ratio
+    blk = current()
     if not float(ratio).is_integer():
         duv = jittered_deferred_uv(
             _render_uv(settings.render_size, planes[0].device), frame_number,
             settings.output_size, ratio, amount=0.5,
         )
-        return [nearest_sample(a, duv) for a in planes]
+        return [nearest_sample(blk.gather(a), duv) for a in planes]
     c = _deferred_phase(frame_number, int(ratio), 0.5)
-    return [strided_deferred_plane(a, c, int(ratio), settings.render_size) for a in planes]
+    size = blk.size(settings.render_size)
+    return [strided_deferred_plane(a, c, int(ratio), size) for a in planes]
 
 
 def normal_weight(n0, n1):
@@ -76,19 +83,25 @@ def demodulate(radiance, albedo_rr):
     return torch.where(dark, 0.0, radiance / torch.where(dark, 1.0, albedo_rr))
 
 
-def filtered_variance(variance):
-    """3x3 kernel-weighted variance gather (denoise.wgsl:155-162)."""
+def filtered_variance(variance, tap=None):
+    """3x3 kernel-weighted variance gather (denoise.wgsl:155-162);
+    ``tap("var", dy, dx)`` fetches the neighbours (default ``dense_tap``)."""
+    if tap is None:
+        tap = dense_tap({"var": variance}, 1)
     k = ATROUS_KERNEL
     out = float(k[1][1]) * torch.clamp(variance, min=0.0)
     for dx, dy in _OFFSETS:
-        v, valid = shift2d(variance, dy, dx)
+        v, valid = tap("var", dy, dx)
         out = out + float(k[dy + 1][dx + 1]) * torch.where(valid, torch.clamp(v, min=0.0), 0.0)
     return out
 
 
-def atrous_level(irradiance, var, guides, settings: RenderSettings, step: int):
-    """One edge-aware à-trous level at ``step`` texels; ``guides`` =
-    (depth, normal, grad, inst)."""
+def atrous_level(irradiance, var, guides, settings: RenderSettings, tap):
+    """One edge-aware à-trous level. ``guides`` = (depth, normal, grad,
+    inst); ``tap(name, dy, dx) -> (tap_array, valid)`` supplies the
+    neighbour ``(dy, dx)`` steps away of "irr", "normal", "depth" or
+    "inst" (``dense_tap``, or the halo transport of
+    ``parallel/halo.py``)."""
     depth, normal, grad, inst = guides
     k = ATROUS_KERNEL
     lum_c = luminance(irradiance)
@@ -106,10 +119,10 @@ def atrous_level(irradiance, var, guides, settings: RenderSettings, step: int):
         ff_n = torch.zeros_like(lum_c)
 
     for dx, dy in _OFFSETS:
-        s_irr, valid = shift2d(irradiance, dy * step, dx * step)
-        s_norm, _ = shift2d(normal, dy * step, dx * step)
-        s_depth, _ = shift2d(depth, dy * step, dx * step)
-        s_inst, _ = shift2d(inst, dy * step, dx * step)
+        s_irr, valid = tap("irr", dy, dx)
+        s_norm, _ = tap("normal", dy, dx)
+        s_depth, _ = tap("depth", dy, dx)
+        s_inst, _ = tap("inst", dy, dx)
         s_lum = luminance(s_irr)
         nan_s = (torch.isnan(s_irr) | (s_irr > 3.0e38)).any(-1)
         ok = valid & ~nan_s
@@ -145,6 +158,33 @@ def atrous_level(irradiance, var, guides, settings: RenderSettings, step: int):
     return new_irr
 
 
+def dense_tap(fields, step: int, gathered=None):
+    """The whole-image tap transport: ``shift2d`` of each field by (dy,
+    dx) steps of ``step``. Under a sharded frame the fields are this
+    block's; the shift reads the gathered image (each field gathered once,
+    kept in ``gathered``, which levels may share) and keeps the block."""
+    blk = current()
+    gathered = {} if gathered is None else gathered
+
+    def tap(name, dy, dx):
+        if name not in gathered:
+            gathered[name] = blk.gather(fields[name])
+        shifted, valid = shift2d(gathered[name], dy * step, dx * step)
+        return blk.take(shifted), blk.take(valid)
+
+    return tap
+
+
+def _deferred_maps(gbuffer: GBuffer, settings: RenderSettings, frame_number: int):
+    """(depth, normal, grad, inst) at render resolution: the guides."""
+    pos, normal, grad, inst = deferred_planes(
+        (gbuffer.position, gbuffer.normal, gbuffer.depth_gradient,
+         gbuffer.instance.to(torch.float32)),
+        settings, frame_number,
+    )
+    return pos[..., 3], normal, grad, inst
+
+
 def denoise_channel(
     radiance,
     variance,
@@ -157,18 +197,17 @@ def denoise_channel(
     (rh, rw) after temporal/spatial reuse, albedo resampled to render res:
     demodulation, 4 à-trous levels with the optional firefly clamp, and
     re-modulation by the albedo."""
-    pos, normal, grad, inst = deferred_planes(
-        (gbuffer.position, gbuffer.normal, gbuffer.depth_gradient,
-         gbuffer.instance.to(torch.float32)),
-        settings, frame_number,
-    )
-    depth = pos[..., 3]
+    depth, normal, grad, inst = _deferred_maps(gbuffer, settings, frame_number)
     background = depth < F32_EPSILON
 
     irradiance = demodulate(radiance, albedo_rr)
     var = filtered_variance(variance)
+    guides = {"normal": normal, "depth": depth, "inst": inst}
+    gathered = {}  # the guides' gathers, shared by the levels
     for step in STEP_SIZES:
-        irradiance = atrous_level(irradiance, var, (depth, normal, grad, inst), settings, step)
+        gathered.pop("irr", None)
+        tap = dense_tap({"irr": irradiance, **guides}, step, gathered)
+        irradiance = atrous_level(irradiance, var, (depth, normal, grad, inst), settings, tap)
 
     out = irradiance * albedo_rr  # re-modulate (denoise.wgsl:314-315)
     return torch.where(background[..., None], 0.0, out)

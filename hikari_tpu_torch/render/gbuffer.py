@@ -17,6 +17,7 @@ from hikari_tpu_torch.render.types import GBuffer
 from hikari_tpu_torch.scene.buffers import SceneBuffers
 from hikari_tpu_torch.trace.api import hit_info, trace_rays
 from hikari_tpu_torch.utils import HALTON_JITTER, clip_to_uv
+from hikari_tpu_torch.utils.block import current
 
 
 def frame_jitter(frame_number: int, smaa_tu4x: bool) -> np.ndarray:
@@ -68,11 +69,12 @@ def render_gbuffer(
         bruteforce_max_tris=settings.bruteforce_max_tris,
         max_steps=settings.max_traversal_steps,
     )
+    blk = current()
     if settings.stop_after == "gbuffer:trace":
-        return _truncated(pass_sum(hit), size, origin.device)
+        return _truncated(blk.sum(pass_sum(hit)), blk.size(size), origin.device)
     info = hit_info(scene, origin, direction, hit)
     if settings.stop_after == "gbuffer:hitinfo":
-        return _truncated(pass_sum(hit, info), size, origin.device)
+        return _truncated(blk.sum(pass_sum(hit, info)), blk.size(size), origin.device)
 
     miss = hit.prim < 0
     world_pos = info.position[..., :3]
@@ -107,9 +109,9 @@ def render_gbuffer(
     velocity_uv = torch.cat([velocity, info.uv], dim=-1)
 
     # Screen-space forward differences stand in for the rasterizer's
-    # dpdx/dpdy (prepass.wgsl:89).
-    ddx = torch.diff(depth, dim=1, append=depth[:, -1:])
-    ddy = torch.diff(depth, dim=0, append=depth[-1:, :])
+    # dpdx/dpdy (prepass.wgsl:89); 0 on the image's last column and row.
+    ddx = blk.edge_shift(depth, 0, 1) - depth
+    ddy = blk.edge_shift(depth, 1, 0) - depth
 
     return GBuffer(
         position=position,

@@ -65,6 +65,7 @@ from hikari_tpu_torch.utils import (
     normal_basis,
     safe_normalize,
 )
+from hikari_tpu_torch.utils.block import current
 
 # ---------------------------------------------------------------------------
 # G-buffer fetch at render resolution (reference jittered_deferred_*
@@ -107,12 +108,9 @@ def strided_deferred_plane(a, c: int, ratio_int: int, render_size):
 
 
 def render_coords(render_size, device):
-    rh, rw = render_size
-    return torch.meshgrid(
-        torch.arange(rh, dtype=torch.int32, device=device),
-        torch.arange(rw, dtype=torch.int32, device=device),
-        indexing="ij",
-    )
+    """(ys, xs) int32: the image coordinates of the frame block's render
+    pixels (``utils.block``; the whole image unsharded)."""
+    return current().coords(render_size, device, torch.int32)
 
 
 def _render_uv(render_size, device):
@@ -130,18 +128,21 @@ def fetch_gbuffer_deferred(gb: GBuffer, frame_number: int, settings, amount: flo
     firewall; for a fractional one (FSR1) a gather at the deferred
     coordinates (``fetch_gbuffer``)."""
     ratio = settings.upscale_ratio
+    blk = current()
     if not float(ratio).is_integer():
         duv = jittered_deferred_uv(
             _render_uv(settings.render_size, gb.position.device), frame_number,
             settings.output_size, ratio, amount,
         )
         dy, dx = uv_to_coords(duv, settings.output_size)
-        return fetch_gbuffer(gb, dy, dx)
+        return fetch_gbuffer(map_tensors(blk.gather, gb), dy, dx)
+    # An integer ratio keeps a render block's deferred texels inside the
+    # same block of the output.
     Ri = int(ratio)
     c = _deferred_phase(frame_number, Ri, amount)
 
     def f(a):
-        out = strided_deferred_plane(a, c, Ri, settings.render_size)
+        out = strided_deferred_plane(a, c, Ri, blk.size(settings.render_size))
         return clip_gradient(out, 1e4, "gb_fetch") if out.is_floating_point() else out
 
     return GBuffer(
@@ -180,18 +181,23 @@ def gather_reservoir(r: Reservoir, y, x) -> Reservoir:
 
 def load_previous_reservoir(grid: Reservoir, prev_uv, render_size) -> Reservoir:
     """Reference ``load_previous_reservoir`` (light.wgsl:181-190): empty
-    outside [0,1]^2, nearest gather inside."""
+    outside [0,1]^2, nearest gather inside. Under a sharded frame the
+    reprojection reaches any pixel, so it reads the gathered grid."""
     in_bounds = ((prev_uv - 0.5).abs() < 0.5).all(-1)
     y, x = uv_to_coords(prev_uv, render_size)
     empty = Reservoir.zeros(in_bounds.shape, in_bounds.device)
-    return gather_reservoir(grid, y, x).select(in_bounds, empty)
+    full = map_tensors(current().gather, grid)
+    return gather_reservoir(full, y, x).select(in_bounds, empty)
 
 
 def scatter_invalidate(grid: Reservoir, prev_uv, mask, render_size) -> Reservoir:
     """Zero the reservoir at reprojected coords where ``mask`` — the
     reference's store_previous_spatial_reservoir of a reset reservoir
-    (light.wgsl:1092-1095, :1199-1202). Collisions all write zeros."""
+    (light.wgsl:1092-1095, :1199-1202). Collisions all write zeros. Under
+    a sharded frame a pixel may write into another rank's block: each
+    rank marks the whole image and the marks meet in a cross-rank min."""
     rh, rw = render_size
+    blk = current()
     in_bounds = ((prev_uv - 0.5).abs() <= 0.5).all(-1)
     m = mask & in_bounds
     y, x = uv_to_coords(prev_uv, render_size)
@@ -202,15 +208,15 @@ def scatter_invalidate(grid: Reservoir, prev_uv, mask, render_size) -> Reservoir
         torch.where(m, 0.0, 1.0).reshape(-1),
         reduce="amin",
     )
-    invalidated = (keep < 0.5).reshape(rh, rw)
-    return Reservoir.zeros(render_size, prev_uv.device).select(invalidated, grid)
+    invalidated = blk.take((blk.min(keep) < 0.5).reshape(rh, rw))
+    return Reservoir.zeros(blk.size(render_size), prev_uv.device).select(invalidated, grid)
 
 
 def _channel_cut(acc, render_size, device, temporal, spatial):
     """A light channel cut by ``stop_after`` (JAX ``light.py`` ``_trunc``):
     radiance and variance hold ``acc``, no pixel is background, and the
     reservoirs pass through."""
-    rh, rw = render_size
+    rh, rw = current().size(render_size)
     out3 = torch.zeros((rh, rw, 3), device=device) + acc
     var = torch.zeros((rh, rw), device=device) + acc
     bgd = torch.zeros((rh, rw), dtype=torch.bool, device=device)
@@ -220,7 +226,8 @@ def _channel_cut(acc, render_size, device, temporal, spatial):
 def channel_random(noise_bank, frame_number: int, render_size):
     """Blue-noise 4D random + golden-ratio temporal scrambling
     (light.wgsl:1075-1079)."""
-    r = noise_plane(noise_bank, frame_number, render_size)
+    blk = current()
+    r = noise_plane(noise_bank, frame_number, blk.size(render_size), blk.origin(render_size))
     return fract(r + _golden_offset(frame_number))
 
 
@@ -287,7 +294,7 @@ def direct_lit_pass(
     Returns (radiance (rh,rw,3), variance (rh,rw), new temporal reservoir,
     updated shared spatial-previous reservoir, background mask, reservoir)."""
     render_size = settings.render_size
-    rh, rw = render_size
+    rh, rw = current().size(render_size)
     dev = gbuffer.position.device
 
     duv = jittered_deferred_uv(
@@ -306,7 +313,8 @@ def direct_lit_pass(
         return settings.stop_after == f"{chan}:{stage}"
 
     def cut(spatial, *trees):
-        return _channel_cut(channel_sum(*trees), render_size, dev, temporal, spatial)
+        return _channel_cut(current().sum(channel_sum(*trees)), render_size, dev, temporal,
+                            spatial)
 
     if stopped("fetch"):
         return cut(de_spatial_prev, g, rand, duv)
@@ -480,7 +488,7 @@ def indirect_lit_pass(
     at each bounce (reference ``indirect_lit_ambient``). Returns the same
     tuple as ``direct_lit_pass``."""
     render_size = settings.render_size
-    rh, rw = render_size
+    rh, rw = current().size(render_size)
     dev = gbuffer.position.device
 
     duv = jittered_deferred_uv(
@@ -496,7 +504,8 @@ def indirect_lit_pass(
         return settings.stop_after == f"indirect:{stage}"
 
     def cut(spatial, *trees):
-        return _channel_cut(channel_sum(*trees), render_size, dev, temporal, spatial)
+        return _channel_cut(current().sum(channel_sum(*trees)), render_size, dev, temporal,
+                            spatial)
 
     if stopped("fetch"):
         return cut(spatial_prev, g, rand)

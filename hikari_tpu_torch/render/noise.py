@@ -74,16 +74,18 @@ def reference_noise_bank(directory: str, count: int = NOISE_TEXTURE_COUNT) -> np
     return np.stack(planes)
 
 
-def noise_plane(bank: torch.Tensor, frame_number: int, size_hw):
-    """``sample_noise`` over the whole (h, w) pixel grid: the index
-    pattern (pixel + frame) % noise_size is periodic with the 64-texel
-    tile, so the fetch is one texture pick + a roll + a tile."""
+def noise_plane(bank: torch.Tensor, frame_number: int, size_hw, origin=(0, 0)):
+    """``sample_noise`` over the (h, w) pixel grid whose first pixel is
+    ``origin`` (a sharded frame's block): the index pattern (pixel +
+    frame) % noise_size is periodic with the 64-texel tile, so the fetch
+    is one texture pick + a roll + a tile."""
     count, size = bank.shape[0], bank.shape[1]
     tile = bank[frame_number % count]
     shift = frame_number % size
     rolled = torch.roll(tile, (-shift, -shift), dims=(0, 1))
-    h, w = size_hw
-    return rolled.repeat(-(-h // size), -(-w // size), 1)[:h, :w, :]
+    (h, w), (y0, x0) = size_hw, origin
+    plane = rolled.repeat(-(-(y0 + h) // size), -(-(x0 + w) // size), 1)
+    return plane[y0 : y0 + h, x0 : x0 + w, :]
 
 
 def sample_noise(bank: torch.Tensor, frame_number: int, coords_y, coords_x):

@@ -9,6 +9,12 @@ the NaN -> albedo fallback) (reference render graph PREPASS -> LIGHT ->
 POST_PROCESS -> OVERLAY, src/lib.rs:332-365). ``settings.stop_after``
 cuts the frame after a stage (``render/stops.py``).
 
+Under a sharded frame (``parallel/sharding.make_sharded_render``) every
+pass runs on the rank's block of the image (``utils.block``). The post
+chain's passes (SMAA TU4x, TAA, FSR1, bloom, FXAA) read neighbourhoods,
+history and mips that reach anywhere: each runs on the gathered image and
+keeps the block's rows.
+
 Where the JAX package fails on a setting (FSR1 under TAA Jasmine, SMAA
 TU4x at a fractional ratio, bloom on a mip with an odd side), the port
 raises ValueError naming the JAX line instead of rendering a frame the
@@ -43,6 +49,8 @@ from hikari_tpu_torch.render.types import FrameState, GBuffer, RenderOutputs
 from hikari_tpu_torch.scene.buffers import SceneBuffers
 from hikari_tpu_torch.trace.api import remat
 from hikari_tpu_torch.utils import luminance, map_tensors, resolve_device, uv_grid
+from hikari_tpu_torch.utils.block import WHOLE
+from hikari_tpu_torch.utils.block import current as current_block
 
 _RESERVOIRS = (
     "direct_temporal",
@@ -92,12 +100,22 @@ def _albedo_at_render_res(albedo, settings: RenderSettings, frame_number: int):
 
 
 def _denoise3(direct, direct_var, em, em_var, ind, ind_var, albedo_rr, gbuffer,
-              frame_number: int, settings: RenderSettings):
+              frame_number: int, settings: RenderSettings, denoise_fn=denoise_channel):
     """The three lighting channels through one denoiser each."""
     return tuple(
-        denoise_channel(rad, var, albedo_rr, gbuffer, frame_number, settings)
+        denoise_fn(rad, var, albedo_rr, gbuffer, frame_number, settings)
         for rad, var in ((direct, direct_var), (em, em_var), (ind, ind_var))
     )
+
+
+def _gathered_gbuffer(gb: GBuffer) -> GBuffer:
+    """The whole G-buffer from a sharded frame's blocks, with the planes
+    SMAA TU4x and TAA read (position, velocity/uv, instance); the others
+    are None."""
+    blk = current_block()
+    return GBuffer(position=blk.gather(gb.position), normal=None, depth_gradient=None,
+                   instance=blk.gather(gb.instance), material=None,
+                   velocity_uv=blk.gather(gb.velocity_uv))
 
 
 def _firewall(out, name):
@@ -122,9 +140,10 @@ def _pass(settings: RenderSettings, name, fn, *args, **kwargs):
 def _truncated(state_in: FrameState, device, *trees):
     """A frame cut by ``stop_after`` (JAX ``pipeline.py`` ``_truncate``):
     every output is a (4, 4, 4) image holding the sum of the float leaves
-    computed so far, and the input state is carried with its frame number
+    computed so far (over the whole image: a cross-rank sum under a sharded
+    frame), and the input state is carried with its frame number
     advanced."""
-    img = torch.zeros((4, 4, 4), device=device) + prefix_sum(*trees)
+    img = torch.zeros((4, 4, 4), device=device) + current_block().sum(prefix_sum(*trees))
     out = RenderOutputs(image=img, albedo=img, direct=img, emissive=img, indirect=img,
                         tonemapped=img, stats=None)
     return out, state_in.replace(frame_number=int(state_in.frame_number) + 1)
@@ -143,10 +162,17 @@ def render_frame(
     state: FrameState,
     settings: RenderSettings,
     noise_bank=None,
+    denoise_fn=None,
 ):
-    """Render one frame. Returns (RenderOutputs, FrameState)."""
+    """Render one frame. Returns (RenderOutputs, FrameState).
+
+    ``denoise_fn``: a channel denoiser with the signature of
+    ``render/denoise.denoise_channel`` to run instead of it (JAX
+    ``render_frame``'s): the sharded frame's halo-exchange denoiser,
+    ``parallel/halo.denoise_channel_sharded``."""
     check_supported(settings)
     dev = scene.device
+    blk = current_block()
     if noise_bank is None:
         noise_bank = noise_bank_on(dev)
     frame_number = int(state.frame_number)
@@ -174,7 +200,7 @@ def render_frame(
     if stop == "direct" or stop.startswith("direct:"):
         return cut(gbuffer, albedo, direct_out, direct_var, de_spatial)
 
-    rh, rw = settings.render_size
+    rh, rw = blk.size(settings.render_size)
     if settings.emissive_lit and scene.num_emissives > 0:
         em_out, em_var, em_temporal, de_spatial, _, _ = _pass(
             settings, "emissive_lit", direct_lit_pass,
@@ -229,7 +255,7 @@ def render_frame(
         direct_d, em_d, ind_d = _pass(
             settings, "denoise", _denoise3, direct_out, direct_var, em_out, em_var, ind_out,
             ind_var, _albedo_at_render_res(albedo, settings, frame_number), gbuffer,
-            frame_number, settings,
+            frame_number, settings, denoise_fn=denoise_fn or denoise_channel,
         )
     else:
         direct_d, em_d, ind_d = direct_out, em_out, ind_out
@@ -253,40 +279,51 @@ def render_frame(
 
     current = tonemapped
     prev_upscaled = state.prev_upscaled
-    if settings.upscale.mode == UpscaleMode.SMAA_TU4X:
+    smaa = settings.upscale.mode == UpscaleMode.SMAA_TU4X
+    taa = settings.taa == Taa.JASMINE
+    if (smaa or taa) and blk.sharded:
+        gb_all, prev_gb_all = _gathered_gbuffer(gbuffer), _gathered_gbuffer(state.prev_gbuffer)
+    else:
+        gb_all, prev_gb_all = gbuffer, state.prev_gbuffer
+    if smaa:
         if not float(settings.upscale_ratio).is_integer():
             h, w = settings.output_size
+            frh, frw = settings.render_size
             raise _mirrored_fault(
                 f"SMAA TU4x at ratio {settings.upscale_ratio}", "hikari_tpu/render/smaa.py:162",
-                f"TypeError: incompatible shapes for broadcasting: ({rh}, {rw}), "
+                f"TypeError: incompatible shapes for broadcasting: ({frh}, {frw}), "
                 f"({h // 2}, {w // 2})",
             )
-        current = smaa_tu4x(current, state.prev_upscaled, gbuffer, state.prev_gbuffer,
-                            frame_number,
-                            stop=stop.split(":", 1)[1] if stop.startswith("smaa:") else None)
+        current = blk.take(smaa_tu4x(
+            blk.gather(current), blk.gather(state.prev_upscaled), gb_all, prev_gb_all,
+            frame_number, stop=stop.split(":", 1)[1] if stop.startswith("smaa:") else None,
+        ))
         current = clip_gradient(current, 1e4, "smaa")
         prev_upscaled = current
     if stop == "smaa" or stop.startswith("smaa:"):
         return cut(gbuffer, albedo, current)
 
     prev_taa = state.prev_taa
-    if settings.taa == Taa.JASMINE:
+    if taa:
         if settings.upscale.mode == UpscaleMode.FSR1:
+            frh, frw = settings.render_size
             raise _mirrored_fault(
                 "FSR1 under TAA Jasmine", "hikari_tpu/render/taa.py:402, _taa_consume",
-                f"TypeError: incompatible shapes for broadcasting: ({rh}, {rw}), "
+                f"TypeError: incompatible shapes for broadcasting: ({frh}, {frw}), "
                 f"{settings.output_size}: TAA runs at the render size, its previous-depth "
                 f"taps at the G-buffer's",
             )
-        current = taa_jasmine(current, state.prev_taa, gbuffer, state.prev_gbuffer,
-                              settings.clear_color, settings.upscale_ratio)
+        current = blk.take(taa_jasmine(blk.gather(current), blk.gather(state.prev_taa), gb_all,
+                                       prev_gb_all, settings.clear_color,
+                                       settings.upscale_ratio))
         current = clip_gradient(current, 1e4, "taa")
         prev_taa = current
     if stop == "taa":
         return cut(gbuffer, albedo, current)
 
     if settings.upscale.mode == UpscaleMode.FSR1:
-        current = fsr_upscale(current, settings.output_size, settings.upscale.sharpness)
+        current = blk.take(fsr_upscale(blk.gather(current), settings.output_size,
+                                       settings.upscale.sharpness))
 
     # ---- OVERLAY: HDR inverse Reinhard (src/shaders/overlay.wgsl:27-46),
     # the chained bloom and FXAA (src/lib.rs:332-365), and the NaN ->
@@ -295,13 +332,15 @@ def render_frame(
     if settings.hdr:
         image = torch.cat([inverse_reinhard_luminance(image[..., :3]), image[..., 3:4]], dim=-1)
     if settings.bloom:
-        image = bloom_pass(image, settings.bloom_threshold, settings.bloom_intensity)
+        image = blk.take(bloom_pass(blk.gather(image), settings.bloom_threshold,
+                                    settings.bloom_intensity))
     if settings.fxaa:
-        image = fxaa_pass(image)
+        image = blk.take(fxaa_pass(blk.gather(image)))
     nan_mask = torch.isnan(image).any(-1, keepdim=True)
     albedo_out = albedo
     if image.shape[:2] != albedo.shape[:2]:
-        albedo_out = nearest_sample(albedo, uv_grid(image.shape[:2], dev))
+        full = (image.shape[0] * blk.ny, image.shape[1] * blk.nx)
+        albedo_out = blk.take(nearest_sample(blk.gather(albedo), uv_grid(full, dev)))
     image = torch.where(
         nan_mask, torch.cat([albedo_out, torch.ones_like(albedo_out[..., :1])], dim=-1), image
     )
@@ -326,14 +365,15 @@ def render_frame(
     )
     stats = None
     if settings.collect_stats:
+        # Over the whole image: cross-rank sums under a sharded frame.
         stats = {
-            "background_fraction": bg.to(torch.float32).mean(),
-            "nonfinite_pixels": nan_mask.to(torch.int32).sum(),
-            "mean_luminance_direct": luminance(direct_d).mean(),
-            "mean_luminance_emissive": luminance(em_d).mean(),
-            "mean_luminance_indirect": luminance(ind_d).mean(),
-            "mean_temporal_count": reservoirs["direct_temporal"].count.mean(),
-            "mean_reservoir_lifetime": reservoirs["direct_temporal"].lifetime.mean(),
+            "background_fraction": blk.mean(bg.to(torch.float32)),
+            "nonfinite_pixels": blk.sum(nan_mask.to(torch.int32).sum()),
+            "mean_luminance_direct": blk.mean(luminance(direct_d)),
+            "mean_luminance_emissive": blk.mean(luminance(em_d)),
+            "mean_luminance_indirect": blk.mean(luminance(ind_d)),
+            "mean_temporal_count": blk.mean(reservoirs["direct_temporal"].count),
+            "mean_reservoir_lifetime": blk.mean(reservoirs["direct_temporal"].lifetime),
         }
 
     outputs = RenderOutputs(
@@ -348,14 +388,18 @@ def render_frame(
     return outputs, new_state
 
 
-def initial_state(settings: RenderSettings, device=None) -> FrameState:
+def initial_state(settings: RenderSettings, device=None, block=WHOLE) -> FrameState:
     """Allocate the cross-frame state with the per-pass shapes of the JAX
     package's ``initial_state``, on ``device`` (the CUDA card unless the
-    caller names another; raises without a card)."""
+    caller names another; raises without a card): of the whole image, or
+    only of ``block`` of it (``utils.block.Block``; what a rank of a
+    sharded frame holds, ``parallel/multihost.host_local_state``)."""
     device = resolve_device(device)
-    h, w = settings.output_size
-    rh, rw = settings.render_size
-    taa_hw = (2 * rh, 2 * rw) if settings.upscale.mode == UpscaleMode.SMAA_TU4X else (rh, rw)
+    frh, frw = settings.render_size
+    h, w = block.size(settings.output_size)
+    rh, rw = block.size((frh, frw))
+    smaa = settings.upscale.mode == UpscaleMode.SMAA_TU4X
+    taa_hw = block.size((2 * frh, 2 * frw)) if smaa else (rh, rw)
 
     def res():
         r = Reservoir.zeros((rh, rw), device)
@@ -371,5 +415,5 @@ def initial_state(settings: RenderSettings, device=None) -> FrameState:
         indirect_spatial=res(),
         prev_tonemapped=torch.zeros((rh, rw, 4), device=device),
         prev_taa=torch.zeros(taa_hw + (4,), device=device),
-        prev_upscaled=torch.zeros((2 * rh, 2 * rw, 4), device=device),
+        prev_upscaled=torch.zeros(block.size((2 * frh, 2 * frw)) + (4,), device=device),
     )

@@ -72,6 +72,7 @@ from hikari_tpu_torch.utils import (
     random_float,
     safe_normalize,
 )
+from hikari_tpu_torch.utils.block import current
 
 _f32 = np.float32
 
@@ -104,11 +105,17 @@ def spatial_reuse_pass(
     """``temporal``: this channel's freshly written temporal grid;
     ``spatial_prev``: the previous frame's spatial grid (reprojected here);
     ``variance_in`` (rh, rw): the temporal pass's variance. Returns
-    (radiance (rh, rw, 3), variance, new spatial reservoir grid)."""
+    (radiance (rh, rw, 3), variance, new spatial reservoir grid).
+
+    Under a sharded frame the pass computes its block's pixels and reads
+    the taps, which reach any pixel (the spiral wraps around the image),
+    from the gathered temporal grid and depths."""
     render_size = settings.render_size
     deferred_size = settings.output_size
     ratio = settings.upscale_ratio
     rh, rw = render_size
+    blk = current()
+    lh, lw = blk.size(render_size)
     dev = gbuffer.position.device
 
     reuse_count = SPATIAL_REUSE_COUNT_EMISSIVE if emissive_lit else SPATIAL_REUSE_COUNT_DIRECT
@@ -130,6 +137,9 @@ def spatial_reuse_pass(
 
     temporal = detach(temporal)
     spatial_prev = detach(spatial_prev)
+    temporal_all = map_tensors(blk.gather, temporal)
+    depth_all = blk.gather(depth)
+    gdepth_all = blk.gather(gbuffer.position[..., 3])
 
     r = temporal  # load_reservoir(coords), light.wgsl:1520
     q0 = r
@@ -191,17 +201,17 @@ def spatial_reuse_pass(
         sy = torch.clamp(sample_coords[..., 1], 0, rh - 1)
         s_duv = jittered_deferred_uv(sample_uv, frame_number, deferred_size, ratio)
         sdy, sdx = uv_to_coords(s_duv, deferred_size)
-        sample_depth = gbuffer.position[..., 3][sdy.long(), sdx.long()]
-        q = gather_reservoir(temporal, sy, sx)
+        sample_depth = gdepth_all[sdy.long(), sdx.long()]
+        q = gather_reservoir(temporal_all, sy, sx)
 
-        occluded = torch.zeros((rh, rw), dtype=torch.bool, device=dev)
+        occluded = torch.zeros((lh, lw), dtype=torch.bool, device=dev)
         offset_dir = offset / float(max(radius, _f32(1e-8)))
         for j in range(1, min(tap_count, SPATIAL_REUSE_TAPS + 1) + 1):
             tap_dist = float(_f32(j) * interval)
             tap_uv = uv + tap_dist * offset_dir / wh
             tdy, tdx = uv_to_coords(jittered_deferred_uv(tap_uv, frame_number, deferred_size, ratio),
                                     deferred_size)
-            tap_depth = gbuffer.position[..., 3][tdy.long(), tdx.long()]
+            tap_depth = gdepth_all[tdy.long(), tdx.long()]
             ref_depth = depth + (sample_depth - depth) * _march_fraction(j, tap_count)
             occluded = occluded | (tap_depth > ref_depth + 1e-5)
         return eval_tap(r, q, sample_depth, in_bounds, occluded)
@@ -233,13 +243,13 @@ def spatial_reuse_pass(
 
         oy, ox = at(offs)
         yy, xx = torch.remainder(ys + oy, rh), torch.remainder(xs + ox, rw)
-        q = gather_reservoir(temporal, yy, xx)
-        sample_depth = depth[yy, xx]
+        q = gather_reservoir(temporal_all, yy, xx)
+        sample_depth = depth_all[yy, xx]
         in_bounds = (xs + ox >= 0) & (xs + ox < rw) & (ys + oy >= 0) & (ys + oy < rh)
-        occluded = torch.zeros((rh, rw), dtype=torch.bool, device=dev)
+        occluded = torch.zeros((lh, lw), dtype=torch.bool, device=dev)
         for j in range(len(march[0])):
             ty, tx = at([m[j] for m in march])
-            tap_depth = depth[torch.remainder(ys + ty, rh), torch.remainder(xs + tx, rw)]
+            tap_depth = depth_all[torch.remainder(ys + ty, rh), torch.remainder(xs + tx, rw)]
             ref_depth = depth + (sample_depth - depth) * _march_fraction(j + 1, tap_count)
             occluded = occluded | (tap_depth > ref_depth + 1e-5)
         return eval_tap(r, q, sample_depth, in_bounds, occluded)

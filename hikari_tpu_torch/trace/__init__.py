@@ -1,6 +1,15 @@
 """Ray tracing: closest-hit queries and hit reconstruction (port of
 ``hikari_tpu.trace``)."""
 
-from hikari_tpu_torch.trace.api import Hit, HitInfo, hit_info, occlude_hit_info, refine_hit, trace_rays
+from hikari_tpu_torch.trace.api import (
+    Hit,
+    HitInfo,
+    hit_info,
+    occlude_hit_info,
+    refine_hit,
+    shard_tracing,
+    trace_rays,
+)
 
-__all__ = ["Hit", "HitInfo", "hit_info", "occlude_hit_info", "refine_hit", "trace_rays"]
+__all__ = ["Hit", "HitInfo", "hit_info", "occlude_hit_info", "refine_hit", "shard_tracing",
+           "trace_rays"]

@@ -58,6 +58,9 @@ from hikari_tpu_torch.utils import safe_normalize, take_rows
 # through a kernel). The BVH walk and the tiled tracer launch no kernel of
 # their own and are not counted, nor is a hit replayed from a tape.
 trace_calls = 0
+# Rays this process searched, on any device and backend (under
+# shard_tracing: its shard); a replayed hit searches none.
+rays_traced = 0
 
 _SEARCH_METHODS = ("auto", "auto_xla", "pallas", "bruteforce", "pallas_tiled", "scatter", "bvh",
                    "tiled")
@@ -126,6 +129,64 @@ def _record_hit(hit):
     for tape, replay in _tapes:
         if not replay:
             tape.hits.append(hit)
+
+
+# ---------------------------------------------------------------------------
+# Sharded dispatch: the kernel backends under shard_tracing
+# ---------------------------------------------------------------------------
+
+_SHARD_CTX: list = []  # stack of (mesh, axes) entries
+_SHARDED_METHODS = ("pallas", "pallas_tiled", "scatter")
+
+
+@contextmanager
+def shard_tracing(mesh, axis=None):
+    """Trace on a mesh of ranks (``parallel/sharding.Mesh``; JAX
+    ``shard_tracing``). While active, every kernel backend ("pallas",
+    "pallas_tiled", "scatter", and "auto" resolving to one of them)
+    splits the flat rays over the ranks of ``axis`` (a mesh axis name or
+    tuple of names; default: every mesh axis), pads the last shard with
+    inert rays (max distance 0, empty prim range: they hit nothing),
+    traces this rank's shard through its kernel and all-gathers the hits:
+    every rank returns the whole call's hits. Inside a sharded frame
+    (``utils.block``) the rays are already the rank's block of the
+    frame's rays, so each rank traces its own and the hits stay sharded,
+    as JAX's ``shard_map`` over rays sharded on the same axes does. The
+    other backends are left alone (the JAX package leaves them to GSPMD).
+    The search is detached: no gradient crosses the gather."""
+    axes = tuple(mesh.axis_names) if axis is None else (
+        (axis,) if isinstance(axis, str) else tuple(axis))
+    _SHARD_CTX.append((mesh, axes))
+    try:
+        yield
+    finally:
+        _SHARD_CTX.pop()
+
+
+def _shard_backend(search, arrays, fills):
+    """``search(*arrays) -> (t, prim, u, v)`` under the active
+    shard_tracing context: this rank's shard of the rays, padded with
+    ``fills``, then the all-gathered hits (JAX ``_shard_backend``).
+    Returns the hits and the rays this rank searched."""
+    from hikari_tpu_torch.parallel.halo import all_gather_plain
+    from hikari_tpu_torch.utils.block import current
+
+    if current().sharded:
+        return search(*arrays), arrays[0].shape[0]
+    mesh, axes = _SHARD_CTX[-1]
+    k, n = mesh.index(axes)
+    R = arrays[0].shape[0]
+    per = -(-R // n)
+
+    def shard(x, fill):
+        if per * n > R:
+            x = torch.cat([x, torch.full((per * n - R,) + x.shape[1:], fill, dtype=x.dtype,
+                                         device=x.device)])
+        return x[k * per : (k + 1) * per].contiguous()
+
+    hits = search(*(shard(x, f) for x, f in zip(arrays, fills)))
+    group = mesh.group(axes)
+    return tuple(torch.cat(all_gather_plain(h, group, "trace"))[:R] for h in hits), per
 
 
 @dataclass(frozen=True)
@@ -202,8 +263,10 @@ def trace_rays(
     update needs a strictly nearer t), as the JAX ``trace_tiled`` does.
 
     Inside a remat region (``trace_tape``) a replaying run returns the
-    recorded hit of the same call and searches nothing."""
-    global trace_calls
+    recorded hit of the same call and searches nothing. Under
+    ``shard_tracing`` the kernel backends search this rank's shard of
+    the rays."""
+    global trace_calls, rays_traced
     replayed = _replayed_hit() if _tapes else None
     if replayed is not None:
         _record_hit(replayed)
@@ -228,23 +291,28 @@ def trace_rays(
     lo = per_ray(range_lo, 0, torch.int32)
     hi = per_ray(range_hi, scene.num_tris, torch.int32)
 
-    if dev.type == "cuda" and R and method not in _PLAIN_METHODS:
-        trace_calls += 1
-    if method == "tiled":
-        early = per_ray(early_distance, 0.0, torch.float32)
-        t, prim, u, v = _trace_tiled(scene, o, d, maxd, early, excl, lo, hi)
-    elif method == "bvh":
-        early = per_ray(early_distance, 0.0, torch.float32)
-        t, prim, u, v = _trace_bvh(scene, o, d, maxd, early, excl, lo, hi, max_steps)
-    elif method == "pallas_tiled":
-        early = per_ray(early_distance, 0.0, torch.float32)
-        t, prim, u, v = _trace_tile_walk(scene, o, d, maxd, early, excl, lo, hi)
-    elif method == "scatter":
-        t, prim, u, v = trace_scatter(*pack_clusters(scene, SCATTER_CLUSTER), o, d, maxd, excl,
-                                      lo, hi)
-    else:
+    early = per_ray(early_distance, 0.0, torch.float32)
+
+    def search(o, d, maxd, early, excl, lo, hi):
+        if method == "tiled":
+            return _trace_tiled(scene, o, d, maxd, early, excl, lo, hi)
+        if method == "bvh":
+            return _trace_bvh(scene, o, d, maxd, early, excl, lo, hi, max_steps)
+        if method == "pallas_tiled":
+            return _trace_tile_walk(scene, o, d, maxd, early, excl, lo, hi)
+        if method == "scatter":
+            return trace_scatter(*pack_clusters(scene, SCATTER_CLUSTER), o, d, maxd, excl, lo, hi)
         tie = "bruteforce" if method == "bruteforce" else "pallas"
-        t, prim, u, v = closest_hit(o, d, maxd, excl, lo, hi, pack_triangles(scene), tie)
+        return closest_hit(o, d, maxd, excl, lo, hi, pack_triangles(scene), tie)
+
+    args = (o, d, maxd, early, excl, lo, hi)
+    if _SHARD_CTX and method in _SHARDED_METHODS and R:
+        (t, prim, u, v), searched = _shard_backend(search, args, (0.0, 1.0, 0.0, 0.0, -1, 0, 0))
+    else:
+        (t, prim, u, v), searched = search(*args), R
+    rays_traced += searched
+    if dev.type == "cuda" and searched and method not in _PLAIN_METHODS:
+        trace_calls += 1
     inst = torch.where(prim >= 0, scene.tri_inst[prim.clamp(min=0)], -1).to(torch.int32)
     hit = Hit(
         t=t.reshape(shape),

@@ -186,8 +186,43 @@ def take_rows(table, idx):
     advanced indexing (``index_put`` with accumulate) sorts the indices and
     sums each run of equal ones in one warp; on the few rows of a material
     or triangle table, read by every pixel of a 960x540 frame, that took
-    ~140 ms a call on the H100."""
+    ~140 ms a call on the H100.
+
+    A table read many times a row (at least ``REUSED_ROWS`` reads a row:
+    a material, light or triangle table read by every pixel) adds its
+    cotangent rows into up to ``SPREAD`` copies of the table, the i-th
+    read into copy i mod SPREAD, and sums the copies in f64: one f32 sum
+    of a 1080p frame's ~10^6 cotangents a row read up to 1.2e-5 relative
+    L2 apart under another order of the adds (a sharded frame's, the
+    card's atomics), and the copies also spread the atomics over more
+    addresses."""
+    if table.requires_grad and torch.is_grad_enabled() and idx.numel() >= REUSED_ROWS * len(table):
+        return _TakeRowsSpread.apply(table, idx.reshape(-1)).reshape(idx.shape + table.shape[1:])
     return torch.index_select(table, 0, idx.reshape(-1)).reshape(idx.shape + table.shape[1:])
+
+
+REUSED_ROWS = 64
+SPREAD = 256
+
+
+class _TakeRowsSpread(torch.autograd.Function):
+    """``index_select`` whose backward sums the cotangent rows over
+    ``SPREAD`` copies of the table, the copies in f64."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return torch.index_select(table, 0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        rows, n = ctx.rows, idx.numel()
+        copies = max(1, min(SPREAD, n // (REUSED_ROWS * rows)))
+        slot = idx + rows * (torch.arange(n, device=idx.device) % copies)
+        acc = g.new_zeros((copies * rows,) + g.shape[1:]).index_add_(0, slot, g)
+        return acc.view((copies, rows) + g.shape[1:]).double().sum(0).to(g.dtype), None
 
 
 def gather_channels(table, idx):

@@ -205,8 +205,19 @@ def test_train_step_zeros_for_unread_leaf(setup, monkeypatch):
 
 
 def test_sharded_step_raises(setup):
-    with pytest.raises(NotImplementedError, match="queue 1 item 1, 'parallel/'"):
-        make_train_step(setup[3], sharded=True)
+    """``make_train_step(sharded=True)`` without a mesh no longer raises: it
+    is the JAX package's GSPMD step over its inputs' placement, here one
+    rank's unsharded step under ``_xla_tracer``'s settings (``tracer="auto"``
+    -> ``"auto_xla"``, which the port dispatches alike), so it gives the
+    unsharded step's loss and gradients bit for bit. The sharded step with
+    a mesh: ``tests/test_torch_parallel.py``."""
+    buffers, cam, state, settings = setup
+    target = torch.zeros(24, 24, 3)
+    got = make_train_step(settings, sharded=True)(buffers, cam, state, target)
+    want = make_train_step(settings)(buffers, cam, state, target)
+    assert torch.equal(got[0], want[0])
+    for k in DIFF_LEAVES:
+        assert torch.equal(got[1][k], want[1][k]), k
 
 
 @pytest.mark.parametrize("config", ["cornell", "city"])
