@@ -5,10 +5,11 @@
 
 Phases, each reported on its own line:
   1. [device] require CUDA; print the card and its power limit.
-  2. [build] compile the five kernels from csrc/ with nvcc
+  2. [build] compile the seven kernels from csrc/ with nvcc
      (closest_hit.cu, tile_walk.cu, scatter_items.cu, window_pack.cu,
-     take_along.cu) and the C++ BVH builder with g++, all at once; print
-     each build time and ptxas' registers, shared memory and spills.
+     take_along.cu, tile_entries.cu, scatter_plan.cu) and the C++ BVH
+     builder with g++, all at once; print each build time and ptxas'
+     registers, shared memory and spills.
   3. cornell. [kernel]/[time]: the closest-hit kernel against its plain
      twin on the card, (a) on the 1080p cornell primary rays, (b) on a
      random 5120-triangle soup with exclusion and prim ranges; prim equal,
@@ -30,6 +31,15 @@ Phases, each reported on its own line:
      p50, p90) and the longest tile's own bound; the kernel's SASS
      instructions per pair on the pair loop's common path, where no ray of
      the warp takes the pair (``cuobjdump``), and the issue floor they give.
+     The phase-1 kernel (K2·p1, ``tile_entries.cu``) against its twin at
+     (c) and (d), with and without the rays' prim ranges: entries, per-ray
+     max entries and the sorted order bit for bit; its CUDA-event ms, its
+     twin's and its bound at (c), and the stable sort's ms on its own line.
+     The plan kernel (K3·pAB, ``scatter_plan.cu``) against its twin at
+     (e), (f), (e) with ``items_per_ray=2`` (drops) and (e) with one
+     instance's prim range a ray: meta, items and the dropped count bit for
+     bit; at (e) its two launches' device ms, the whole call's ms, its
+     twin's and its bound.
      The scatter kernel against its twin on every item, (e) on the (c)
      rays, with its hits against the tile walk's, (f) on the (d) rays;
      CUDA-event times at (e) of the kernel, phases A+B, the segment-min, the
@@ -40,7 +50,9 @@ Phases, each reported on its own line:
      ``city_path`` (512x512 without the post chain, every trace through the
      tile walk) and of ``city_bench_scatter`` (the city bench frame: 512x512
      output from 256x256 with the post chain and ``tracer="scatter"``,
-     every trace through the scatter kernel). [check]: a small city
+     every trace through the scatter kernel); on each path the phase
+     kernels launch once a trace kernel launch (K2·p1 with the tile walk,
+     K3·pAB with the scatter kernel), on the cornell paths never. [check]: a small city
      (blocks=3, 18,422 triangles), card against CPU, at 48x63 without the
      post chain and at 48x60 with the bench settings and the scatter tracer.
   5. primitives. [kernel]: (g) the window-table pack (T1) at the TPU
@@ -83,9 +95,9 @@ Phases, each reported on its own line:
   9. passes (after [grad check]). [passes]: the port's
      ``tools/profile_prefix`` on the bench frame, forward and fwd+grad:
      per coarse stage the prefix's ms/frame and device ms/frame with
-     their deltas; the device deltas' sum within 3% of the untruncated
-     frame profiled again, the host sum printed beside the frame timed
-     again.
+     their deltas; the untruncated prefix's device time within 3% of the
+     untruncated frame profiled again, frame by frame (frames 3-5), the
+     host sum printed beside the frame timed again.
   10. textured glTF (after [render]). [textured]: ``examples/render
      scene --assets DIR`` at 512x512 on a small textured glTF written into
      a temporary asset directory, against the untextured stand-in; the
@@ -121,8 +133,9 @@ Phases, each reported on its own line:
      K2 there and against K1 on the cornell 1080p primary rays, prims
      equal but for counted ties and (at (d)) any-hit answers;
      ``city_tiled``, 2 frames of ``city_path``'s settings with
-     ``tracer="tiled"``: finite, lit, no kernel launch; the small city's
-     tiled frames at 48x63, card against CPU.
+     ``tracer="tiled"``: finite, lit, no trace kernel launch, one K2·p1
+     launch a tiled call; the small city's tiled frames at 48x63, card
+     against CPU.
   13. [bench_trace] (after 12): ``hikari_tpu_torch.bench_trace`` on
      cornell, city-8, city-24 and city-551k with its six backends at
      1,048,576 rays, then ``--stress`` (terrain-1m) with pallas, tiled,
@@ -131,7 +144,9 @@ Phases, each reported on its own line:
      its K1b launches join the kernel line; K1b against its twin on the
      card, bit for bit, at every bench row that launched it (city-8 on all
      1,048,576 rays, the larger tables on every k-th ray), and K1b's
-     kernel-line times at city-8's shape.
+     kernel-line times at city-8's shape; then K2·p1 and K3·pAB against
+     their twins on city-8's 1,048,576 rays, with their [time] lines
+     (kernel, twin, bound; the sort).
   14. [remat] (after [train]): from one state, one ``cornell_bench``
      fwd+grad step with ``remat=True``, two with ``remat=False`` and one
      with ``channel_remat=True``: loss and every leaf within
@@ -204,6 +219,9 @@ K2_K3_SHARE = 0.999
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 PAIR_FLOPS = 30
+# A ray/cluster-AABB slab test (K2·p1, K3·pAB): 6 subtractions, 6
+# multiplications, 12 min/max and the compares, ~30 FP32 operations.
+SLAB_FLOPS = 30
 # The primitives' shapes: the TPU tool's (tools/bench_pallas_prims.py).
 PACK_PLANES, PACK_HW, PACK_DXS = 8, (1080, 1920), list(range(16))
 GATHER_CASES = (((512, 128), 1, 32), ((512, 128), 1, 128), ((512, 128), 1, 1), ((8, 1024), 0, 32))
@@ -352,11 +370,12 @@ def cuda_time_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters, warmup=2):
+def device_ms(fn, iters, warmup=2, names=None):
     """Device time per call of ``fn``: the CUDA kernels' time in a
-    torch.profiler trace of ``iters`` calls, over ``iters``. For calls so
+    torch.profiler trace of ``iters`` calls, over ``iters``; with
+    ``names``, only the kernels whose names hold one of them. For calls so
     short that the host's launch loop, not the card, sets the pace of
-    ``cuda_time_ms``."""
+    ``cuda_time_ms``, and for the kernels among a call's other work."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -367,7 +386,10 @@ def device_ms(fn, iters, warmup=2):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type.name == "CUDA")
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type.name == "CUDA" and (names is None or any(n in e.key for n in names)))
+    if names is not None and not busy_us > 0:
+        raise AssertionError(f"no device time of {names} in the profile")
     return busy_us / iters / 1e3
 
 
@@ -514,6 +536,7 @@ def run_main_path(name, scene, cam, settings, device, tag="[main]"):
     from hikari_tpu_torch.trace import closest_hit as ch
     from hikari_tpu_torch.trace import scatter as sc
     from hikari_tpu_torch.trace import tile_walk as tw
+    from hikari_tpu_torch.trace import tiled as ttiled
     from hikari_tpu_torch.utils import luminance
 
     state = initial_state(settings, device)
@@ -538,6 +561,13 @@ def run_main_path(name, scene, cam, settings, device, tag="[main]"):
     peak = torch.cuda.max_memory_allocated(device)
     if not (traces > 0 and sum(launches.values()) == traces):
         raise AssertionError(f"{name}: kernel launches {launches} for {traces} CUDA trace calls")
+    # The slab-test phases before the tile walk and the scatter kernel (the
+    # plan launches its kernel twice a call).
+    phases = {"tile_entries": ttiled.launches, "scatter_plan": sc.plan_launches}
+    if phases != {"tile_entries": launches["tile_walk"],
+                  "scatter_plan": 2 * launches["scatter_items"]}:
+        raise AssertionError(f"{name}: phase kernel launches {phases} for trace kernel launches "
+                             f"{launches}")
     stats = {k: float(v) for k, v in out.stats.items()}
     img = out.image
     rh, rw = settings.render_size
@@ -560,14 +590,14 @@ def run_main_path(name, scene, cam, settings, device, tag="[main]"):
             res.w, res.w_sum, res.w2_sum, res.s.radiance) if x.dtype == torch.float16)
     median_ms = float(np.median(frame_ms[1:]))
     log(f"{tag} {name} {settings.width}x{settings.height}, {FRAMES} frames: {traces} trace calls, "
-        f"kernel launches {launches}; ms/frame median(frames 2-{FRAMES}) {median_ms:.2f} "
+        f"kernel launches {launches}, phase kernels {phases}; ms/frame median(frames 2-{FRAMES}) {median_ms:.2f} "
         f"(all: {', '.join(f'{m:.1f}' for m in frame_ms)}); peak memory "
         f"{peak / 2**30:.3f} GiB; mean luminance {mean_lum:.4f}; stats {stats}")
     log(f"{tag} {name} last frame: non-finite values per channel {nonfinite}; inf entries in "
         f"the f16 reservoir state (w, w_sum, w2_sum, radiance) {f16_inf}; scatter items "
         f"dropped per frame {dropped}; closest-hit launches over tables above 2,048 "
         f"triangles {launches_k1b}")
-    return state, dict(launches, closest_hit_k1b=launches_k1b)
+    return state, dict(launches, closest_hit_k1b=launches_k1b, **phases)
 
 
 def check_small(name, scene_gpu, scene_cpu, cam, settings, device, frames=(0, 1, 2)):
@@ -649,7 +679,8 @@ def profile_frames(name, advance, state, frames=2, top=12):
             f"{e.key.split(':')[-1].strip()} {e.device_time_total / 1e3:.3f} ms ({e.count}x)"
             for e in sorted(bwd, key=lambda e: -e.device_time_total)[:top]))
     ours = [e for e in kernels
-            if any(k in e.key for k in ("closest_hit", "tile_walk", "scatter_items"))]
+            if any(k in e.key for k in ("closest_hit", "tile_walk", "scatter_items",
+                                        "tile_entries_kernel", "scatter_plan_kernel"))]
     log(f"[profile]   the trace kernels: " + (", ".join(
         f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms in {e.count} launches" for e in ours)
         or "none"))
@@ -1062,8 +1093,10 @@ def reset_counts():
     from hikari_tpu_torch.trace import closest_hit as ch
     from hikari_tpu_torch.trace import scatter as sc
     from hikari_tpu_torch.trace import tile_walk as tw
+    from hikari_tpu_torch.trace import tiled as ttiled
 
     ch.launches = ch.streamed_launches = tw.launches = sc.launches = api.trace_calls = 0
+    ttiled.launches = sc.plan_launches = 0
 
 
 def read_counts():
@@ -1349,9 +1382,10 @@ def run_passes_phase(device):
     """[passes]: the port's ``tools/profile_prefix`` on the bench frame
     (cornell 1920x1080 from 960x540), forward, then fwd+grad: per stage
     the prefix's ms/frame and device ms/frame and their deltas. The deltas
-    telescope to the untruncated prefix, so the device sum is held against
-    the untruncated frame profiled again at another frame, within 3% (the
-    tool's stated frame-to-frame spread). The host sum is printed beside
+    telescope to the untruncated prefix, whose device reading of each
+    traced frame is held against the untruncated frame profiled again at
+    the same frame, within 3% (the same work: a trace that lost device
+    time fails here). The host sum is printed beside
     the frame timed again, with the larger of the two runs' ranges, and
     not checked: on a shared host two runs of the same frame have differed
     by more than either run's range. Every trace must go through the
@@ -1381,9 +1415,11 @@ def run_passes_phase(device):
         deltas = sum(r["delta_ms"] for r in rows)
         spread = max(max(x) - min(x) for x in (rows[-1]["samples"], again))
         dev_deltas = sum(r["delta_device_ms"] for r in rows)
-        if not abs(dev_deltas - dev_again) <= 0.03 * dev_again:
-            raise AssertionError(f"[passes] {mode}: the device deltas sum to {dev_deltas:.3f} "
-                                 f"ms/frame, the untruncated frame profiled again {dev_again:.3f}")
+        pairs = list(zip(rows[-1]["device_readings"], res["device_again_readings"]))
+        if not all(abs(a - b) <= 0.03 * b for (a, _), (b, _) in pairs):
+            raise AssertionError(f"[passes] {mode}: frame by frame, the untruncated prefix's "
+                                 f"device (ms, events) {[p[0] for p in pairs]} against the frame "
+                                 f"profiled again {[p[1] for p in pairs]}")
         log(f"[passes] {mode}: host stage deltas {deltas:.2f} ms/frame, the untruncated frame "
             f"timed again {np.median(again):.2f} (the larger run range {spread:.2f} ms; printed, "
             f"not checked); device "
@@ -1929,12 +1965,14 @@ def check_tiled_call(label, scene, scene_cpu, rays, stride):
 def run_city_tiled(city, cam, settings, device):
     """[tiled] ``city_tiled``: ``TILED_FRAMES`` frames of ``city_path``'s
     settings with ``tracer="tiled"``, counts set to 0 just before: finite
-    and lit, no kernel launch, every trace through the tiled tracer."""
+    and lit, no trace kernel launch, every trace through the tiled tracer,
+    whose phase 1 launches the phase-1 kernel once a call."""
     import numpy as np
     import torch
 
     from hikari_tpu_torch.render.pipeline import initial_state, render_frame
     from hikari_tpu_torch.trace import api
+    from hikari_tpu_torch.trace import tiled as ttiled
     from hikari_tpu_torch.utils import luminance
 
     s = settings.replace(tracer="tiled")
@@ -1964,11 +2002,15 @@ def run_city_tiled(city, cam, settings, device):
     img = out.image
     mean_lum = float(luminance(img[..., :3]).mean())
     nonfinite = int((~torch.isfinite(img)).sum())
-    if any(counts.values()) or not calls[0] or nonfinite or not mean_lum > 0.0:
+    p1 = ttiled.launches
+    if (any(counts.values()) or not calls[0] or p1 != calls[0] or nonfinite
+            or not mean_lum > 0.0):
         raise AssertionError(f"[tiled] city_tiled: counts {counts}, tiled calls {calls[0]}, "
-                             f"{nonfinite} non-finite pixels, mean luminance {mean_lum}")
+                             f"phase-1 launches {p1}, {nonfinite} non-finite pixels, mean "
+                             f"luminance {mean_lum}")
     log(f"[tiled] city_tiled {s.width}x{s.height}, {TILED_FRAMES} frames: {calls[0]} tiled "
-        f"calls, kernel launches and trace_calls {counts}; ms/frame "
+        f"calls = phase-1 kernel launches {p1}, trace kernel launches and trace_calls {counts}; "
+        f"ms/frame "
         f"{', '.join(f'{m:.1f}' for m in frame_ms)} (median {np.median(frame_ms):.1f}); peak "
         f"memory {peak / 2**30:.3f} GiB; mean luminance {mean_lum:.4f}; non-finite pixels 0")
 
@@ -2342,6 +2384,131 @@ def run_sharded_phase(city_arrays, city_cam, smi):
     log(f"[sharded] {time.perf_counter() - t0:.1f} s")
 
 
+def entries_bound(R, L):
+    """K2·p1's bound: one slab test a (ray, cluster) pair; each ray's o,
+    inv, maxd, lo, hi read and its max entry written (40 B), the bounds
+    read (25 B a cluster), the (T, L) entries written."""
+    return bound_ms(R * L * SLAB_FLOPS, R * 40 + L * 25 + (R // 512) * L * 4)
+
+
+def plan_bound(R, L, cap):
+    """K3·pAB's bound: one slab test a (ray, cluster) pair (the kernel
+    makes two); each ray's o, d, maxd, lo, hi read (36 B), the bounds read,
+    meta (8 B a block) and the items (8 B a slot) written."""
+    return bound_ms(R * L * SLAB_FLOPS, R * 36 + L * 25 + cap // 128 * 8 + cap * 8)
+
+
+def check_entries(label, cmin, cmax, cvalid, o, d, maxd, lo, hi, cluster):
+    """[kernel] K2·p1 against its twin on the card, with the rays' prim
+    ranges and without: entries, ray_maxent and the stable sort of the
+    entries bit for bit. Returns the largest |kernel - twin| (0)."""
+    import torch
+
+    from hikari_tpu_torch.config import F32_MAX
+    from hikari_tpu_torch.trace import tiled as ttiled
+    from hikari_tpu_torch.utils import same_bits
+
+    inv = ttiled.safe_inv_dir(d)
+    err = 0.0
+    for rng in ((lo, hi), (None, None)):
+        got = ttiled.tile_cluster_entries(cmin, cmax, cvalid, o, inv, maxd, *rng, cluster=cluster)
+        want = ttiled.tile_cluster_entries_reference(cmin, cmax, cvalid, o, inv, maxd, *rng,
+                                                     cluster=cluster)
+        torch.cuda.synchronize()
+        ranges = "with" if rng[0] is not None else "without"
+        err = max([err] + [float((g - w).abs().max()) for g, w in zip(got, want)])
+        if not (same_bits(got[0], want[0]) and same_bits(got[1], want[1])):
+            raise AssertionError(f"K2·p1 {label} {ranges} prim ranges: not bitwise equal to the "
+                                 f"twin")
+        if not torch.equal(torch.sort(got[0], dim=1, stable=True)[1],
+                           torch.sort(want[0], dim=1, stable=True)[1]):
+            raise AssertionError(f"K2·p1 {label}: the sorted order differs from the twin's")
+        T, L = want[0].shape
+        log(f"[kernel] K2·p1 {label} {ranges} prim ranges, {T} tiles x {L} clusters of "
+            f"{cluster}: entries, ray_maxent and the sorted order bitwise equal to the twin; "
+            f"{int((want[0] < F32_MAX).sum())} entered (tile, cluster) entries "
+            f"({int((want[0] == 0).sum())} at 0), {int((want[1] >= 0).sum())} rays enter a cluster")
+    return err
+
+
+def check_plan(label, cmin, cmax, cvalid, o, d, maxd, lo, hi, items_per_ray=32):
+    """[kernel] K3·pAB against its twin on the card: meta, items and the
+    dropped count bit for bit. Returns the kernel's plan and the largest
+    |kernel - twin| of meta, items and the dropped count (0)."""
+    import torch
+
+    from hikari_tpu_torch.trace import scatter as sc
+
+    got = sc.scatter_plan(cmin, cmax, cvalid, o, d, maxd, lo, hi, items_per_ray)
+    want = sc.scatter_plan_reference(cmin, cmax, cvalid, o, d, maxd, lo, hi, items_per_ray)
+    torch.cuda.synchronize()
+    err = max([abs(got[2] - want[2])] + [float((g - w).abs().max()) if g.numel() else 0.0
+                                         for g, w in zip(got[:2], want[:2])])
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and got[2] == want[2]):
+        raise AssertionError(f"K3·pAB {label}: not bitwise equal to the twin (dropped {got[2]} "
+                             f"vs {want[2]})")
+    meta = want[0]
+    log(f"[kernel] K3·pAB {label}, {o.shape[0]} rays x {cmin.shape[0]} clusters, items_per_ray "
+        f"{items_per_ray}: meta, items and dropped bitwise equal to the twin; "
+        f"{int(meta[:, 1].sum()) + want[2]} entered pairs, {int((meta[:, 1] > 0).sum())} used "
+        f"blocks, dropped {want[2]}")
+    return got, err
+
+
+def time_phases_city8(device):
+    """[time] K2·p1, the sort and K3·pAB at ``[bench_trace]``'s city-8
+    shape (its 1,048,576 rays, sorted into tiles as ``trace_rays`` sorts
+    them for the tile walk), each beside its twin and its bound."""
+    import torch
+
+    from hikari_tpu_torch import bench_trace as bt
+    from hikari_tpu_torch.config import F32_MAX
+    from hikari_tpu_torch.scene import compile_scene, to_device
+    from hikari_tpu_torch.trace import api
+    from hikari_tpu_torch.trace import scatter as sc
+    from hikari_tpu_torch.trace import tile_walk as tw
+    from hikari_tpu_torch.trace import tiled as ttiled
+
+    buffers = to_device(compile_scene(bt.build_scenes()["city-8"]), device)
+    o, d = bt.make_rays(buffers, BENCH_TRACE_RAYS, device=device)
+    R = o.shape[0]
+    order = api.ray_sort_order(buffers, o, d)
+    o, d = o[order].contiguous(), d[order].contiguous()
+    maxd = torch.full((R,), F32_MAX, device=device)
+    lo = torch.zeros((R,), dtype=torch.int32, device=device)
+    hi = torch.full((R,), buffers.num_tris, dtype=torch.int32, device=device)
+    cluster, _ = api.tile_cluster_rule(buffers.tri_n.shape[0])
+    _, cmin, cmax, cvalid = tw.pack_clusters(buffers, cluster)
+    check_entries(f"[bench_trace] city-8 ({R} rays)", cmin, cmax, cvalid, o, d, maxd, lo, hi,
+                  cluster)
+    p1 = (cmin, cmax, cvalid, o, ttiled.safe_inv_dir(d), maxd, lo, hi)
+    torch.cuda.synchronize()
+    p1_ms = cuda_time_ms(lambda: ttiled.tile_cluster_entries(*p1, cluster=cluster), 20)
+    p1_plain = cuda_time_ms(lambda: ttiled.tile_cluster_entries_reference(*p1, cluster=cluster), 2,
+                            warmup=1)
+    entries = ttiled.tile_cluster_entries(*p1, cluster=cluster)[0]
+    sort_ms = cuda_time_ms(lambda: torch.sort(entries, dim=1, stable=True), 20)
+    L = cmin.shape[0]
+    p1_bound, p1_by = entries_bound(R, L)
+    _, cmin_s, cmax_s, cvalid_s = tw.pack_clusters(buffers, sc.CLUSTER)
+    plan_args = (cmin_s, cmax_s, cvalid_s, o, d, maxd, lo, hi)
+    check_plan(f"[bench_trace] city-8 ({R} rays)", *plan_args)  # its error is 0 or it raises
+    pab_ms = device_ms(lambda: sc.scatter_plan(*plan_args), 10, names=("scatter_plan_kernel",))
+    pab_call = cuda_time_ms(lambda: sc.scatter_plan(*plan_args), 10)
+    pab_plain = cuda_time_ms(lambda: sc.scatter_plan_reference(*plan_args), 2, warmup=1)
+    Ls = cmin_s.shape[0]
+    pab_bound, pab_by = plan_bound(R, Ls, sc.capacity(R, Ls, 32))
+    log(f"[time] K2·p1 at [bench_trace] city-8 ({R} rays x {L} clusters of {cluster}): kernel "
+        f"{p1_ms:.4f} ms, twin {p1_plain:.4f} ms, bound {p1_bound:.4f} ms ({p1_by})")
+    log(f"[time] sort at city-8: torch.sort(stable) of the ({R // 512}, {L}) entries "
+        f"{sort_ms:.4f} ms")
+    log(f"[time] K3·pAB at [bench_trace] city-8 ({R} rays x {Ls} clusters of 128): the two "
+        f"launches {pab_ms:.4f} ms device, the whole scatter_plan call {pab_call:.4f} ms, twin "
+        f"{pab_plain:.4f} ms, bound {pab_bound:.4f} ms ({pab_by})")
+    del buffers, o, d, entries
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -2359,6 +2526,7 @@ def main():
     from hikari_tpu_torch.trace import closest_hit as ch
     from hikari_tpu_torch.trace import scatter as sc
     from hikari_tpu_torch.trace import tile_walk as tw
+    from hikari_tpu_torch.trace import tiled as ttiled
     from hikari_tpu_torch.tools import ab_trace_kernels as ab
     from hikari_tpu_torch.tools import prims
     from hikari_tpu_torch.utils.nvcc import ptxas_summary
@@ -2372,16 +2540,16 @@ def main():
     log(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
-    # ---- 2. build: the five nvcc builds and the g++ builder at once ----
+    # ---- 2. build: the seven nvcc builds and the g++ builder at once ----
     def g_build():
         native.get_builder()
         return native.build_seconds
 
     builds = (ch.build, tw.build, sc.build, lambda: prims.build("window_pack"),
-              lambda: prims.build("take_along"), g_build)
+              lambda: prims.build("take_along"), g_build, ttiled.build, sc.build_plan)
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = [pool.submit(f) for f in builds]
-        ch_s, tw_s, sc_s, wp_s, ta_s, gxx_s = (f.result() for f in futures)
+        ch_s, tw_s, sc_s, wp_s, ta_s, gxx_s, te_s, sp_s = (f.result() for f in futures)
     log(f"[build] closest_hit.cu {ch_s:.2f} s; ptxas: {ptxas_summary(ch.build_log)}")
     log(f"[build] tile_walk.cu {tw_s:.2f} s; ptxas: {ptxas_summary(tw.build_log)}")
     log(f"[build] scatter_items.cu {sc_s:.2f} s; ptxas: {ptxas_summary(sc.build_log)}")
@@ -2389,6 +2557,8 @@ def main():
         f"{ptxas_summary(prims.build_logs['window_pack'])}")
     log(f"[build] take_along.cu {ta_s:.2f} s; ptxas: {ptxas_summary(prims.build_logs['take_along'])}")
     log(f"[build] bvh_builder.cpp (g++) {gxx_s:.2f} s")
+    log(f"[build] tile_entries.cu {te_s:.2f} s; ptxas: {ptxas_summary(ttiled.build_log)}")
+    log(f"[build] scatter_plan.cu {sp_s:.2f} s; ptxas: {ptxas_summary(sc.plan_build_log)}")
 
     # ---- 3a. closest-hit kernel vs twin on the cornell shapes ----
     arrays = compile_scene(cornell_box_scene())
@@ -2442,14 +2612,17 @@ def main():
 
     # ---- 3b. cornell_path ----
     cornell_state, cornell_launches = run_main_path("cornell_path", cornell, cam, cornell_settings, dev)
-    if cornell_launches["tile_walk"]:
+    if cornell_launches["tile_walk"] or cornell_launches["tile_entries"]:
         raise AssertionError("cornell_path launched the tile walk: it has only 36 triangles")
     if profile:
         profile_frames("cornell_path", render_advance(cornell, cam, cornell_settings), cornell_state)
     cornell_bench = bench_settings(cornell_settings, CORNELL_HW[1], CORNELL_HW[0], "auto")
     bench_state, bench_launches = run_main_path("cornell_bench", cornell, cam, cornell_bench, dev)
-    if bench_launches["tile_walk"] or bench_launches["scatter_items"]:
+    if any(bench_launches[k] for k in ("tile_walk", "scatter_items", "tile_entries",
+                                        "scatter_plan")):
         raise AssertionError(f"cornell_bench launched another search than K1: {bench_launches}")
+    if cornell_launches["scatter_plan"]:
+        raise AssertionError(f"cornell_path launched the scatter plan: {cornell_launches}")
     if profile:
         profile_frames("cornell_bench", render_advance(cornell, cam, cornell_bench), bench_state)
     del bench_state, cornell_state
@@ -2481,12 +2654,22 @@ def main():
     )
     got_c = tw.tile_walk(*walk_c)
     err_c = compare("(c) city 512x512 primary", got_c, tw.tile_walk_reference(*walk_c))
-    walk_d, _ = walk_case(city, *city_random_rays(city, dev))
+    walk_d, phase1_d = walk_case(city, *city_random_rays(city, dev))
     err_d = compare("(d) city random rays", tw.tile_walk(*walk_d), tw.tile_walk_reference(*walk_d))
+    err_p1 = max(check_entries("(c) city 512x512 primary", *phase1_c),
+                 check_entries("(d) city random rays", *phase1_d))
     tested = got_c[4]
     torch.cuda.synchronize()
     tw_ms = cuda_time_ms(lambda: tw.tile_walk(*walk_c), 20)
     entries_ms = cuda_time_ms(lambda: tw.tile_entries(*phase1_c), 5)
+    # K2·p1 alone, its twin and the sort, at (c).
+    p1_c = (*phase1_c[:4], ttiled.safe_inv_dir(phase1_c[4]), *phase1_c[5:8])
+    p1_ms = cuda_time_ms(lambda: ttiled.tile_cluster_entries(*p1_c, cluster=phase1_c[8]), 20)
+    p1_plain_ms = cuda_time_ms(
+        lambda: ttiled.tile_cluster_entries_reference(*p1_c, cluster=phase1_c[8]), 3, warmup=1)
+    entries_c = ttiled.tile_cluster_entries(*p1_c, cluster=phase1_c[8])[0]
+    sort_ms = cuda_time_ms(lambda: torch.sort(entries_c, dim=1, stable=True), 20)
+    p1_bound, p1_by = entries_bound(Rc, entries_c.shape[1])
     trace_ms = cuda_time_ms(
         lambda: api.trace_rays(city, c_origin, c_direction, max_distance=DISTANCE_MAX), 5)
     tw_plain_ms = cuda_time_ms(lambda: tw.tile_walk_reference(*walk_c), 1, warmup=1)
@@ -2511,15 +2694,22 @@ def main():
         f"{longest * PAIR_FLOPS / (PEAK_FP32 / ab.NUM_SMS) * 1e3:.4f} ms; K2 SASS "
         f"{tw_ipp:.2f} instructions a pair (common path), issue floor "
         f"{ab.issue_floor_ms(pairs, tw_ipp):.4f} ms")
+    log(f"[time] (c) K2·p1 ({Rc} rays x {L} clusters of {cluster}, {Rc * L} slab tests): kernel "
+        f"{p1_ms:.4f} ms, twin {p1_plain_ms:.4f} ms, bound {p1_bound:.4f} ms ({p1_by})")
+    log(f"[time] (c) sort: torch.sort(stable) of the ({T}, {L}) entries {sort_ms:.4f} ms")
+    del entries_c
 
     # ---- 4b. scatter kernel vs twin on the city shapes ----
-    del walk_c, walk_d, got_c, phase1_c  # keep the kernel cases out of the later peaks
+    del walk_c, walk_d, got_c, phase1_c, phase1_d, p1_c  # keep the cases out of later peaks
     packed_s, cmin_s, cmax_s, cvalid_s = tw.pack_clusters(city, sc.CLUSTER)
 
+    err_pab = []
+
     def scatter_case(name, o, d, maxd, excl, lo, hi):
-        """Plan, fields, kernel and twin on every item; returns (plan, fields,
-        kernel output, max error)."""
-        plan = sc.scatter_plan(cmin_s, cmax_s, cvalid_s, o, d, maxd, lo, hi)
+        """Plan (against its twin), fields, kernel and twin on every item;
+        returns (plan, fields, kernel output, max error)."""
+        plan, plan_err = check_plan(name, cmin_s, cmax_s, cvalid_s, o, d, maxd, lo, hi)
+        err_pab.append(plan_err)
         meta, items, n_drop = plan
         fields = sc.item_fields(items, o, d, maxd, excl, lo, hi)
         got = sc.scatter_items(meta, fields, packed_s)
@@ -2547,8 +2737,22 @@ def main():
         f"(>= {K2_K3_SHARE} required), {int((hit_e.prim >= 0).sum())} hits")
     f_rays = city_random_rays(city, dev)
     _, _, _, err_f = scatter_case("(f) city random rays, K3", *f_rays[:3], *f_rays[4:])
+    plan_e_args = (cmin_s, cmax_s, cvalid_s, *e_args[:3], *e_args[4:])
+    err_pab.append(check_plan("(e) items_per_ray=2 (drops)", *plan_e_args, items_per_ray=2)[1])
+    # (e) with every ray restricted to one instance's prims.
+    rng_inst = torch.randint(0, city.num_instances, (Rc,), device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(5))
+    lo_r = city.inst_prim_offset[rng_inst].to(torch.int32).contiguous()
+    hi_r = (lo_r + city.inst_prim_count[rng_inst]).to(torch.int32).contiguous()
+    err_pab.append(check_plan("(e) one instance's prim range a ray", *plan_e_args[:6], lo_r,
+                              hi_r)[1])
+    del rng_inst, lo_r, hi_r
     meta_e, items_e, _ = plan_e
     torch.cuda.synchronize()
+    pab_ms = device_ms(lambda: sc.scatter_plan(*plan_e_args), 10, names=("scatter_plan_kernel",))
+    pab_call_ms = cuda_time_ms(lambda: sc.scatter_plan(*plan_e_args), 10)
+    pab_plain_ms = cuda_time_ms(lambda: sc.scatter_plan_reference(*plan_e_args), 2, warmup=1)
+    pab_bound, pab_by = plan_bound(Rc, cmin_s.shape[0], items_e.shape[0])
     sc_ms = cuda_time_ms(lambda: sc.scatter_items(meta_e, fields_e, packed_s), 20)
     plan_ms = cuda_time_ms(lambda: sc.item_fields(
         sc.scatter_plan(cmin_s, cmax_s, cvalid_s, *e_args[:3], *e_args[4:])[1], *e_args), 3)
@@ -2569,6 +2773,10 @@ def main():
         f"{plan_ms:.4f} ms; segment-min {segmin_ms:.4f} ms; whole trace_rays(method='scatter') "
         f"{sc_trace_ms:.4f} ms; twin {sc_plain_ms:.4f} ms; K3 SASS {sc_ipp:.2f} instructions a "
         f"pair (common path), issue floor {ab.issue_floor_ms(sc_pairs, sc_ipp):.4f} ms")
+    log(f"[time] (e) K3·pAB ({Rc} rays x {cmin_s.shape[0]} clusters of 128, "
+        f"{Rc * cmin_s.shape[0]} slab tests a launch): the two launches {pab_ms:.4f} ms device, "
+        f"the whole scatter_plan call {pab_call_ms:.4f} ms, twin {pab_plain_ms:.4f} ms, bound "
+        f"{pab_bound:.4f} ms ({pab_by})")
     check_cluster_errors("(e) timing")
     del plan_e, fields_e, got_e, hit_e, hit_c, meta_e, items_e, f_rays
 
@@ -2576,6 +2784,8 @@ def main():
     city_state, city_launches = run_main_path("city_path", city, city_cam, city_settings, dev)
     if city_launches["closest_hit"] or city_launches["scatter_items"]:
         raise AssertionError(f"city_path sent a trace to another search than K2: {city_launches}")
+    if not city_launches["tile_entries"]:
+        raise AssertionError(f"city_path launched no K2·p1: {city_launches}")
     if profile:
         profile_frames("city_path", render_advance(city, city_cam, city_settings), city_state)
     del city_state
@@ -2583,6 +2793,8 @@ def main():
     cb_state, cb_launches = run_main_path("city_bench_scatter", city, city_cam, city_bench, dev)
     if cb_launches["closest_hit"] or cb_launches["tile_walk"]:
         raise AssertionError(f"city_bench_scatter sent a trace past the scatter kernel: {cb_launches}")
+    if not cb_launches["scatter_plan"]:
+        raise AssertionError(f"city_bench_scatter launched no K3·pAB: {cb_launches}")
     if profile:
         profile_frames("city_bench_scatter", render_advance(city, city_cam, city_bench), cb_state)
     del cb_state
@@ -2599,6 +2811,7 @@ def main():
     run_tiled_phase(cornell, prim_args[:2], city, city_arrays, city_cam, city_settings, small_gpu,
                     small_cpu, dev)
     bench_trace_k1b, k1b_bench = run_bench_trace_phase(dev)
+    time_phases_city8(dev)
 
     # ---- 4d. dynamic scenes: cornell_dynamic, city_stream, the update, the bvh walk ----
     dyn_k1, dyn_k2 = run_dynamic_phase(arrays, city, city_arrays, small_arrays, city_cam, dev,
@@ -2715,6 +2928,32 @@ def main():
             "plain_ms": sc_plain_ms,
             "bound_ms": sc_bound,
             "bound_by": sc_by,
+            "library_ms": None,
+        },
+        {
+            "name": "tile_entries (K2 phase 1)",
+            "route": "cuda",
+            "source": "hikari_tpu_torch/csrc/tile_entries.cu",
+            "replaces": "hikari_tpu/trace/tiled.py:89",
+            "launches": city_launches["tile_entries"] + cb_launches["tile_entries"],
+            "max_abs_err": err_p1,
+            "ms": p1_ms,
+            "plain_ms": p1_plain_ms,
+            "bound_ms": p1_bound,
+            "bound_by": p1_by,
+            "library_ms": None,
+        },
+        {
+            "name": "scatter_plan (K3 phases A and B)",
+            "route": "cuda",
+            "source": "hikari_tpu_torch/csrc/scatter_plan.cu",
+            "replaces": "hikari_tpu/trace/scatter.py:242",
+            "launches": city_launches["scatter_plan"] + cb_launches["scatter_plan"],
+            "max_abs_err": max(err_pab),
+            "ms": pab_ms,
+            "plain_ms": pab_plain_ms,
+            "bound_ms": pab_bound,
+            "bound_by": pab_by,
             "library_ms": None,
         },
         prim_entry("window_pack", "hikari_tpu_torch/csrc/window_pack.cu",

@@ -10,10 +10,16 @@ with its glue.
 Each prefix runs ``--frames`` frames from a fresh state: frame 1 warms up,
 frames 2..N are each timed on the host clock between two synchronizes
 (the median is the prefix's ms/frame); after every prefix's host time and
-the untruncated frame timed again, each prefix runs once more, its third
-frame under ``torch.profiler``, for its device time a frame (on the card
-only), and the untruncated frame is profiled once more, at its fourth
-frame.
+the untruncated frame timed again, each prefix runs once more, its
+frames 3-5 each under its own ``torch.profiler`` trace, for its device
+time a frame (the median of the three, printed beside each frame's ms and
+device events; on the card only), and the untruncated frame is profiled
+once more at the same frames, so that each of its readings can be held
+against the untruncated prefix's reading of the same frame: the work of a
+fwd+grad frame differs from frame to frame (29,499-30,654 device events
+and 176.752-185.205 ms in 42 traces of consecutive frames on an H100 80GB
+HBM3 at 700 W, ``tools/trace_loss``), but not between two runs of the
+same frame.
 ``--grad`` times the fwd+grad frame instead: the loss is the image's mean
 and the gradients are taken with respect to ``parallel.DIFF_LEAVES``, as
 the JAX tool does. The settings are the port bench's
@@ -87,26 +93,40 @@ def host_ms(scene, camera, settings, frames: int, grad: bool, device) -> list[fl
     return samples
 
 
-def device_ms(scene, camera, settings, grad: bool, device, warmup: int = 2) -> float:
-    """Device time of one frame on the card: the CUDA kernels and copies
-    under ``torch.profiler`` in the frame after ``warmup`` frames (the
-    bench frame's device time a frame is the same at frames 1 to 10 within
-    3%)."""
+# Frames traced for a prefix's device time, after two warm-up frames.
+DEVICE_TRACES = 3
+
+
+def device_ms(scene, camera, settings, grad: bool, device) -> list[tuple[float, int]]:
+    """Device time of frames 3 to ``2 + DEVICE_TRACES`` on the card, each
+    in its own ``torch.profiler`` trace of the device activity alone: for
+    each frame, the ms of its CUDA kernels and copies and the number of
+    device events (a trace of the host activity too costs ~8 s a fwd+grad
+    frame)."""
     from torch.profiler import ProfilerActivity, profile
 
     from hikari_tpu_torch.render.pipeline import initial_state
 
     frame = make_frame(settings, grad)
     state = initial_state(settings, device)
-    for _ in range(warmup):
+    for _ in range(2):
         state = frame(scene, camera, state)
-    _sync(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        frame(scene, camera, state)
+    readings = []
+    for _ in range(DEVICE_TRACES):
         _sync(device)
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type.name == "CUDA" and e.key not in RANGES)
-    return busy_us / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state = frame(scene, camera, state)
+            _sync(device)
+        events = [e for e in prof.key_averages()
+                  if e.device_type.name == "CUDA" and e.key not in RANGES]
+        readings.append((sum(e.self_device_time_total for e in events) / 1e3,
+                         sum(e.count for e in events)))
+    return readings
+
+
+def _readings_text(readings) -> str:
+    return (f"frames 3-{2 + DEVICE_TRACES} {' / '.join(f'{ms:.3f}' for ms, _ in readings)} ms, "
+            f"{' / '.join(str(n) for _, n in readings)} events")
 
 
 def main(argv=None) -> dict:
@@ -114,9 +134,10 @@ def main(argv=None) -> dict:
     frame timed and profiled again beside the sums of the stage deltas.
     Host times are all taken before the first profiled frame. Returns
     {"rows": [{"stage", "ms", "delta_ms", "device_ms", "delta_device_ms",
-    "samples"}], "full_again": host samples of the untruncated frame timed
-    again, "device_again": its device ms at its fourth frame (None on the
-    CPU)}."""
+    "device_readings", "samples"}], "full_again": host samples of the
+    untruncated frame timed again, "device_again": its device ms (the
+    median of its readings), "device_again_readings": its (ms, events) at
+    frames 3-5}; the device entries are None on the CPU."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="cornell")
     ap.add_argument("--size", type=int, default=0, help="square frame size (default: the bench's)")
@@ -151,15 +172,19 @@ def main(argv=None) -> dict:
     full_again = host_ms(buffers, camera, settings, args.frames, args.grad, device)
     on_card = device.type == "cuda"
     dev = [device_ms(buffers, camera, s, args.grad, device) if on_card else None for s in cuts]
-    device_again = device_ms(buffers, camera, settings, args.grad, device, 3) if on_card else None
+    again = device_ms(buffers, camera, settings, args.grad, device) if on_card else None
+    device_again = None if again is None else float(np.median([ms for ms, _ in again]))
     rows, prev, prev_dev = [], 0.0, 0.0
-    for stage, smp, dev_ms in zip(stages, samples, dev):
+    for stage, smp, readings in zip(stages, samples, dev):
         ms = float(np.median(smp))
+        dev_ms = None if readings is None else float(np.median([m for m, _ in readings]))
         row = {"stage": stage or "FULL", "ms": ms, "delta_ms": ms - prev, "device_ms": dev_ms,
-               "delta_device_ms": None if dev_ms is None else dev_ms - prev_dev, "samples": smp}
+               "delta_device_ms": None if dev_ms is None else dev_ms - prev_dev,
+               "device_readings": readings, "samples": smp}
         rows.append(row)
         dev_txt = ("device not measured (CPU)" if dev_ms is None else
-                   f"device {dev_ms:9.3f} ms/frame (+{row['delta_device_ms']:8.3f})")
+                   f"device {dev_ms:9.3f} ms/frame (+{row['delta_device_ms']:8.3f}); "
+                   f"{_readings_text(readings)}")
         print(f"{mode} after {row['stage']:16s} {ms:10.3f} ms/frame (+{row['delta_ms']:9.3f}); "
               f"{dev_txt}", flush=True)
         prev, prev_dev = ms, dev_ms or 0.0
@@ -168,9 +193,10 @@ def main(argv=None) -> dict:
           f"{', '.join(f'{m:.1f}' for m in full_again)})", flush=True)
     if on_card:
         print(f"{mode} stage device deltas sum to {sum(r['delta_device_ms'] for r in rows):.3f} "
-              f"ms/frame; the untruncated frame profiled again {device_again:.3f} ms/frame",
-              flush=True)
-    return {"rows": rows, "full_again": full_again, "device_again": device_again}
+              f"ms/frame; the untruncated frame profiled again {device_again:.3f} ms/frame "
+              f"({_readings_text(again)})", flush=True)
+    return {"rows": rows, "full_again": full_again, "device_again": device_again,
+            "device_again_readings": again}
 
 
 if __name__ == "__main__":

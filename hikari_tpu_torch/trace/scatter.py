@@ -4,18 +4,22 @@ for incoherent large-scene rays — the port of ``hikari_tpu.trace.scatter``
 
 ``trace_scatter`` runs four steps over R flat rays (no ordering needed):
 
-1. phase A (plain torch, chunked over rays): slab-test every ray against
-   every cluster AABB; keep the entered (ray, cluster) pairs, sorted
-   cluster-major and ray-ascending within a cluster, and count them per
-   cluster;
-2. the block map and phase B (plain torch): each cluster's run of items
-   is padded to whole 128-item blocks; every entered pair gets the slot of
-   its rank in its cluster's run (the slots of the JAX package's running
-   per-cluster cursors), and its ray id is written there. Slots at or past
-   the capacity ``CAP = ceil(items_per_ray * R / 128) * 128 + 128 * L`` are
-   dropped, as the JAX package's ``mode="drop"`` scatter drops them. The
-   JAX package slab-tests every ray a second time in phase B instead of
-   keeping the pairs: the slots are the same;
+1. phase A: slab-test every ray against every cluster AABB and count the
+   entered (ray, cluster) pairs per cluster;
+2. the block map and phase B: each cluster's run of items is padded to
+   whole 128-item blocks; every entered pair gets the slot of its rank in
+   its cluster's run, rays ascending (the slots of the JAX package's
+   running per-cluster cursors), and its ray id is written there. Slots at
+   or past the capacity ``CAP = ceil(items_per_ray * R / 128) * 128 + 128
+   * L`` are dropped, as the JAX package's ``mode="drop"`` scatter drops
+   them. ``scatter_plan`` runs both: for CUDA tensors the hand-written
+   kernel ``csrc/scatter_plan.cu`` (a count launch per 512-ray chunk and
+   cluster, the scan over chunks and the block map in torch, a place
+   launch that slab-tests again and writes each pair at its chunk's base
+   plus its ballot rank, as the JAX package's two scans do, no sort); its
+   plain twin ``scatter_plan_reference`` (the entered pairs sorted by
+   cluster, then ray) only for CPU tensors. On a CUDA tensor
+   ``scatter_plan`` launches or raises; it never falls back;
 3. the kernel (``scatter_items``): each 128-item block tests its items
    against the 128 triangles of its one cluster — the hand-written CUDA
    kernel ``csrc/scatter_items.cu`` for CUDA tensors, its plain twin
@@ -40,7 +44,7 @@ across its run. A block whose cluster id lies outside ``[0, L)`` writes
 misses and counts in ``cluster_errors()``; the wrapper does not read the
 device to check (no sync per call).
 
-The kernel is built at first use from the repo's source with ``nvcc``
+The kernels are built at first use from the repo's sources with ``nvcc``
 into ``hikari_tpu_torch/_build/`` and bound through ctypes
 (``utils/nvcc.py``).
 """
@@ -64,9 +68,11 @@ BLOCK_R = 128  # items per kernel block
 # Item fields, rows of the (FIELDS, CAP) f32 array: o(3) d(3) maxd, then
 # excl, lo, hi as int32 bits, then valid (0 or 1).
 FIELDS = 11
-# Elements of one (rays, clusters, 3) slab temporary per chunk of phase A
-# (2^26 f32 = 256 MB); any chunk size gives the same slots.
+# Elements of one (rays, clusters, 3) slab temporary per chunk of the
+# plan's twin (2^26 f32 = 256 MB); any chunk size gives the same slots.
 CHUNK_ELEMS = 1 << 26
+# Rays per chunk of the plan kernel's counts (csrc/scatter_plan.cu kChunk).
+PLAN_CHUNK = 512
 # Item/triangle pairs per chunk of the twin: bounds its (blocks, 128, 128)
 # temporaries (2^24 f32 = 64 MB each).
 TWIN_CHUNK_PAIRS = 1 << 24
@@ -75,6 +81,9 @@ F32_MAX_BITS = 0x7F7FFFFF  # float32 F32_MAX as int32 bits
 
 # Kernel launches made by ``scatter_items`` (one per call on CUDA tensors).
 launches = 0
+# Kernel launches made by ``scatter_plan`` (two per call on CUDA tensors:
+# its count launch and its place launch).
+plan_launches = 0
 # Entered (ray, cluster) pairs that ``trace_scatter`` dropped past its
 # capacity, summed over calls.
 dropped = 0
@@ -87,10 +96,13 @@ _errors: dict = {}
 _resident: dict = {}
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "scatter_items.cu"
+PLAN_SOURCE = SOURCE.with_name("scatter_plan.cu")
 
 _lib = None
-# ptxas report of the last build (registers, shared memory, spills).
+_plan_lib = None
+# ptxas reports of the last builds (registers, shared memory, spills).
 build_log = ""
+plan_build_log = ""
 
 
 def _chunk_mask(cmin, cmax, cvalid, o, inv, maxd, lo, hi):
@@ -113,10 +125,51 @@ def _chunks(R: int, L: int):
     return ((s, min(R, s + step)) for s in range(0, R, step))
 
 
-def scatter_plan(cmin, cmax, cvalid, o, d, maxd, lo, hi, items_per_ray: int = 32):
-    """Phases A and B and the block map. Returns (meta (NB, 2) i32 — per
-    block its cluster and valid item count —, items (CAP,) i64 — the ray
-    id of each slot, -1 where empty —, dropped pairs (int))."""
+def capacity(R: int, L: int, items_per_ray: int) -> int:
+    """CAP: the item slots of R rays over L clusters."""
+    return -(-items_per_ray * R // BLOCK_R) * BLOCK_R + L * BLOCK_R
+
+
+def block_map(counts, R: int, items_per_ray: int):
+    """The block map of per-cluster pair counts (L,) i64: (meta (NB, 2) i32
+    — per block its cluster and valid item count —, each cluster's first
+    slot (L,) i64, CAP). Each cluster's run is padded to whole blocks."""
+    L = counts.shape[0]
+    padded = -(-counts // BLOCK_R) * BLOCK_R
+    cum = torch.cumsum(padded, dim=0)
+    offsets = cum - padded  # start slot of each cluster's run
+    cap = capacity(R, L, items_per_ray)
+    nb = cap // BLOCK_R
+    bstart = torch.arange(nb, dtype=torch.int64, device=counts.device) * BLOCK_R
+    bc = torch.clamp(torch.searchsorted(cum, bstart, right=True), max=L - 1)
+    in_use = bstart < cum[-1]
+    bcount = torch.clamp(counts[bc] - (bstart - offsets[bc]), 0, BLOCK_R)
+    meta = torch.stack(
+        [torch.where(in_use, bc, 0), torch.where(in_use, bcount, 0)], dim=-1
+    ).to(torch.int32)
+    return meta, offsets, cap
+
+
+def plan_bases(counts, R: int, items_per_ray: int):
+    """The plan kernel's step between its launches, from the entered pairs
+    per (ray chunk, cluster), counts (NCH, L) i32: (meta as
+    ``block_map``'s, base (NCH, L) i32 — the first slot of each chunk's
+    pairs in each cluster's run: the run's start plus the pairs of the
+    chunks before, clamped to CAP —, CAP, the dropped pairs as a 0-d i64
+    tensor: the pairs of each run past CAP)."""
+    total = counts.sum(dim=0, dtype=torch.int64)
+    meta, offsets, cap = block_map(total, R, items_per_ray)
+    before = torch.cumsum(counts, dim=0, dtype=torch.int64) - counts
+    base = torch.clamp(offsets[None] + before, max=cap).to(torch.int32)
+    dropped = (total - torch.minimum(total, torch.clamp(cap - offsets, min=0))).sum()
+    return meta, base, cap, dropped
+
+
+def scatter_plan_reference(cmin, cmax, cvalid, o, d, maxd, lo, hi, items_per_ray: int = 32):
+    """Plain PyTorch twin of the plan kernel: phases A and B and the block
+    map. Returns (meta (NB, 2) i32 — per block its cluster and valid item
+    count —, items (CAP,) i64 — the ray id of each slot, -1 where empty —,
+    dropped pairs (int))."""
     R, L = o.shape[0], cmin.shape[0]
     dev = o.device
     inv = safe_inv_dir(d)
@@ -132,19 +185,7 @@ def scatter_plan(cmin, cmax, cvalid, o, d, maxd, lo, hi, items_per_ray: int = 32
     pair_c = torch.div(key, R, rounding_mode="floor")
     pair_r = key - pair_c * R
     counts = torch.bincount(pair_c, minlength=L)
-
-    padded = -(-counts // BLOCK_R) * BLOCK_R
-    cum = torch.cumsum(padded, dim=0)
-    offsets = cum - padded  # start slot of each cluster's run
-    cap = -(-items_per_ray * R // BLOCK_R) * BLOCK_R + L * BLOCK_R
-    nb = cap // BLOCK_R
-    bstart = torch.arange(nb, dtype=torch.int64, device=dev) * BLOCK_R
-    bc = torch.clamp(torch.searchsorted(cum, bstart, right=True), max=L - 1)
-    in_use = bstart < cum[-1]
-    bcount = torch.clamp(counts[bc] - (bstart - offsets[bc]), 0, BLOCK_R)
-    meta = torch.stack(
-        [torch.where(in_use, bc, 0), torch.where(in_use, bcount, 0)], dim=-1
-    ).to(torch.int32)
+    meta, offsets, cap = block_map(counts, R, items_per_ray)
 
     # Phase B: a pair's slot is its cluster's run start plus its rank among
     # the cluster's pairs (the rays before it that enter the cluster).
@@ -154,6 +195,76 @@ def scatter_plan(cmin, cmax, cvalid, o, d, maxd, lo, hi, items_per_ray: int = 32
     items = torch.full((cap,), -1, dtype=torch.int64, device=dev)
     items[pos[keep]] = pair_r[keep]
     return meta, items, int(key.shape[0]) - int(keep.sum())
+
+
+def build_plan() -> float:
+    """Compile (if needed) and load the plan kernel's library; returns the
+    seconds spent. Raises if nvcc is missing or the build fails."""
+    global _plan_lib, plan_build_log
+    if _plan_lib is not None:
+        return 0.0
+    start = time.perf_counter()
+    lib, plan_build_log = build_library(PLAN_SOURCE)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.hikari_scatter_plan.argtypes = [ptr] * 8 + [i32] * 3 + [ptr] * 2 + [i32, ptr, ptr]
+    lib.hikari_scatter_plan.restype = i32
+    lib.hikari_scatter_plan_error_string.argtypes = [i32]
+    lib.hikari_scatter_plan_error_string.restype = ctypes.c_char_p
+    _plan_lib = lib
+    return time.perf_counter() - start
+
+
+def scatter_plan(cmin, cmax, cvalid, o, d, maxd, lo, hi, items_per_ray: int = 32):
+    """Phases A and B and the block map: (meta, items, dropped) as
+    ``scatter_plan_reference`` with the same arguments. CPU tensors run the
+    twin; CUDA tensors launch the kernel ``csrc/scatter_plan.cu`` twice
+    (its count launch, then its place launch) or raise. One host read a
+    call: the dropped count."""
+    if o.device.type == "cpu":
+        return scatter_plan_reference(cmin, cmax, cvalid, o, d, maxd, lo, hi, items_per_ray)
+    if o.device.type != "cuda":
+        raise NotImplementedError(f"scatter_plan: no kernel for device {o.device}")
+    R, L = o.shape[0], cmin.shape[0]
+    dev = o.device
+    if L == 0:
+        raise ValueError("scatter_plan: no clusters")
+    for name, x, dtype, shape in (
+        ("o", o, torch.float32, (R, 3)),
+        ("d", d, torch.float32, (R, 3)),
+        ("maxd", maxd, torch.float32, (R,)),
+        ("lo", lo, torch.int32, (R,)),
+        ("hi", hi, torch.int32, (R,)),
+        ("cmin", cmin, torch.float32, (L, 3)),
+        ("cmax", cmax, torch.float32, (L, 3)),
+        ("cvalid", cvalid, torch.bool, (L,)),
+    ):
+        check_kernel_arg("scatter_plan", name, x, dtype, shape, dev)
+    cap = capacity(R, L, items_per_ray)
+    if 3 * R >= 2**31 or (L + 1) * CLUSTER >= 2**31 or cap + PLAN_CHUNK >= 2**31:
+        raise ValueError("scatter_plan: too many rays, clusters or slots for int32 indexing")
+    build_plan()
+    inv = safe_inv_dir(d)
+    nch = -(-R // PLAN_CHUNK)
+    counts = torch.empty((nch, L), dtype=torch.int32, device=dev)
+    items = torch.full((cap,), -1, dtype=torch.int64, device=dev)
+
+    def launch(count: int, base):
+        global plan_launches
+        err = _plan_lib.hikari_scatter_plan(
+            o.data_ptr(), inv.data_ptr(), maxd.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            cmin.data_ptr(), cmax.data_ptr(), cvalid.data_ptr(), R, L, count, counts.data_ptr(),
+            base.data_ptr(), cap, items.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err:
+            raise RuntimeError(f"scatter_plan kernel launch failed: "
+                               f"{_plan_lib.hikari_scatter_plan_error_string(err).decode()}")
+        plan_launches += 1
+
+    with torch.cuda.device(dev):
+        launch(1, counts)  # the count launch reads no base
+        meta, base, _, dropped = plan_bases(counts, R, items_per_ray)
+        launch(0, base)
+    return meta, items, int(dropped)
 
 
 def item_fields(items, o, d, maxd, excl, lo, hi):

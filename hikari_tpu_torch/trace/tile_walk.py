@@ -5,8 +5,9 @@
 ``trace_pallas_tiled``).
 
 ``trace_tile_walk`` runs phase 1 (``trace/tiled.py``: per-tile cluster
-entries, plain torch) and a stable sort of each tile's clusters by entry,
-then the walk: the kernel for CUDA tensors, the twin only for CPU tensors.
+entries, the kernel ``csrc/tile_entries.cu`` for CUDA tensors) and a
+stable sort of each tile's clusters by entry, then the walk: the kernel
+for CUDA tensors, the twin only for CPU tensors.
 On a CUDA tensor ``tile_walk`` launches or raises; it never falls back.
 
 Tie rule (kernel and twin), the JAX kernel's: eight running bests per

@@ -8,8 +8,11 @@ clusters are spatially tight). Rays come in tiles of ``TILE_R``.
 
 Phase 1 (``tile_cluster_entries``): each ray slab-tests every cluster
 AABB, and each tile keeps, per cluster, the nearest entry over its rays.
-The tile-walk kernel (``trace/tile_walk.py``) and phase 2 below then
-visit a tile's clusters near to far.
+CUDA tensors launch the hand-written kernel ``csrc/tile_entries.cu``;
+its plain twin ``tile_cluster_entries_reference`` runs only for CPU
+tensors. On a CUDA tensor ``tile_cluster_entries`` launches or raises; it
+never falls back. The tile-walk kernel (``trace/tile_walk.py``) and phase
+2 below then visit a tile's clusters near to far.
 
 Phase 2 (``trace_tiled``, ``trace_rays(method="tiled")``): clusters of
 ``CLUSTER`` = 512. Step j tests every still-active tile's rays against
@@ -23,16 +26,31 @@ clusters the one visited first (the update takes a strictly nearer t).
 
 from __future__ import annotations
 
+import ctypes
+import time
+from pathlib import Path
+
 import torch
 
 from hikari_tpu_torch.config import F32_EPSILON, F32_MAX
 from hikari_tpu_torch.utils import dot3_ordered
+from hikari_tpu_torch.utils.nvcc import build_library, check_kernel_arg
 
 CLUSTER = 512  # triangles per cluster of phase 2
 TILE_R = 512  # rays per tile
-# Elements of one (rays, clusters, 3) slab temporary per chunk of phase 1
-# (2^26 f32 = 256 MB).
+# Elements of one (rays, clusters, 3) slab temporary per chunk of phase 1's
+# twin (2^26 f32 = 256 MB).
 ENTRY_CHUNK_ELEMS = 1 << 26
+
+# Kernel launches made by ``tile_cluster_entries`` (one per call on CUDA
+# tensors).
+launches = 0
+
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "tile_entries.cu"
+
+_lib = None
+# ptxas report of the last build (registers, shared memory, spills).
+build_log = ""
 
 
 def cluster_bounds(scene, cluster: int):
@@ -84,9 +102,20 @@ def safe_inv_dir(d):
     return 1.0 / torch.where(d.abs() < 1e-20, tiny, d)
 
 
-def tile_cluster_entries(cmin, cmax, cvalid, o, inv_d, maxd, lo=None, hi=None,
-                         cluster: int = 0):
-    """Per-tile nearest cluster entries. o/inv_d: (R, 3), maxd (R,), R a
+def _check_entries_args(R: int, L: int, have_range: bool, cluster: int) -> None:
+    if R % TILE_R:
+        raise ValueError(f"tile_cluster_entries: {R} rays is not a multiple of {TILE_R}")
+    if have_range:
+        if cluster <= 0:
+            raise ValueError("tile_cluster_entries: a prim range needs the cluster size")
+        if L * cluster >= 2**24:
+            raise ValueError("f32 prim range compares are exact only below 2^24 prims")
+
+
+def tile_cluster_entries_reference(cmin, cmax, cvalid, o, inv_d, maxd, lo=None, hi=None,
+                                   cluster: int = 0):
+    """Plain PyTorch twin of the phase-1 kernel, with its exact contract.
+    Per-tile nearest cluster entries. o/inv_d: (R, 3), maxd (R,), R a
     multiple of TILE_R; ``lo``/``hi`` (R,) int32, optional: the per-ray
     primitive range [lo, hi), which prunes every cluster whose prim range
     [c*cluster, (c+1)*cluster) misses it (``cluster`` must then be given).
@@ -97,17 +126,15 @@ def tile_cluster_entries(cmin, cmax, cvalid, o, inv_d, maxd, lo=None, hi=None,
     where the ray enters none) — the walk's per-ray retirement bound.
 
     The range test compares in f32 as the JAX package does; that is exact
-    while the padded primitive count stays below 2^24."""
+    while the padded primitive count stays below 2^24. A zero entry is
+    +0.0: a ray whose origin lies on a cluster's max face with a negative
+    direction has tlo = -0.0, which torch's clamp keeps or not by operand
+    order and device, so the entry adds +0.0 (the kernel does the same)."""
     R = o.shape[0]
     L = cmin.shape[0]
-    if R % TILE_R:
-        raise ValueError(f"tile_cluster_entries: {R} rays is not a multiple of {TILE_R}")
     have_range = lo is not None
+    _check_entries_args(R, L, have_range, cluster)
     if have_range:
-        if cluster <= 0:
-            raise ValueError("tile_cluster_entries: a prim range needs the cluster size")
-        if L * cluster >= 2**24:
-            raise ValueError("f32 prim range compares are exact only below 2^24 prims")
         c_lo = torch.arange(L, dtype=torch.float32, device=o.device) * cluster
         c_hi = c_lo + cluster
     T = R // TILE_R
@@ -123,7 +150,7 @@ def tile_cluster_entries(cmin, cmax, cvalid, o, inv_d, maxd, lo=None, hi=None,
         tlo = torch.minimum(a, b).amax(dim=-1)
         thi = torch.maximum(a, b).amin(dim=-1)
         del a, b
-        entry = torch.clamp(tlo, min=0.0)
+        entry = torch.clamp(tlo, min=0.0) + 0.0
         hit = (thi >= entry) & (entry < maxd[s:e, None]) & cvalid[None]
         if have_range:
             lb = lo[s:e].to(torch.float32)[:, None]
@@ -131,6 +158,77 @@ def tile_cluster_entries(cmin, cmax, cvalid, o, inv_d, maxd, lo=None, hi=None,
             hit = hit & (c_lo[None] < hb) & (c_hi[None] > lb)
         ray_maxent[s:e] = torch.where(hit, entry, -1.0).amax(dim=1)
         entries[t0:t1] = torch.where(hit, entry, F32_MAX).reshape(t1 - t0, TILE_R, L).amin(dim=1)
+    return entries, ray_maxent
+
+
+def build() -> float:
+    """Compile (if needed) and load the phase-1 kernel library; returns the
+    seconds spent. Raises if nvcc is missing or the build fails."""
+    global _lib, build_log
+    if _lib is not None:
+        return 0.0
+    start = time.perf_counter()
+    lib, build_log = build_library(SOURCE)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.hikari_tile_entries.argtypes = [ptr] * 8 + [i32] * 4 + [ptr] * 3
+    lib.hikari_tile_entries.restype = i32
+    lib.hikari_tile_entries_error_string.argtypes = [i32]
+    lib.hikari_tile_entries_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return time.perf_counter() - start
+
+
+def tile_cluster_entries(cmin, cmax, cvalid, o, inv_d, maxd, lo=None, hi=None,
+                         cluster: int = 0):
+    """Phase 1: (entries (T, L), ray_maxent (R,)), as
+    ``tile_cluster_entries_reference`` with the same arguments. CPU
+    tensors run the twin; CUDA tensors launch the kernel
+    ``csrc/tile_entries.cu`` (one launch per call) or raise."""
+    global launches
+    if o.device.type == "cpu":
+        return tile_cluster_entries_reference(cmin, cmax, cvalid, o, inv_d, maxd, lo, hi, cluster)
+    if o.device.type != "cuda":
+        raise NotImplementedError(f"tile_cluster_entries: no kernel for device {o.device}")
+    R, L = o.shape[0], cmin.shape[0]
+    have_range = lo is not None
+    _check_entries_args(R, L, have_range, cluster)
+    if (hi is None) != (lo is None):
+        raise ValueError("tile_cluster_entries: give both lo and hi, or neither")
+    if L == 0:
+        raise ValueError("tile_cluster_entries: no clusters")
+    if 3 * R >= 2**31 or L * cluster >= 2**31:
+        raise ValueError("tile_cluster_entries: too many rays or prims for int32 indexing")
+    dev = o.device
+    args = [
+        ("o", o, torch.float32, (R, 3)),
+        ("inv_d", inv_d, torch.float32, (R, 3)),
+        ("maxd", maxd, torch.float32, (R,)),
+        ("cmin", cmin, torch.float32, (L, 3)),
+        ("cmax", cmax, torch.float32, (L, 3)),
+        ("cvalid", cvalid, torch.bool, (L,)),
+    ]
+    if have_range:
+        args += [("lo", lo, torch.int32, (R,)), ("hi", hi, torch.int32, (R,))]
+    for name, x, dtype, shape in args:
+        check_kernel_arg("tile_cluster_entries", name, x, dtype, shape, dev)
+    build()
+    T = R // TILE_R
+    entries = torch.empty((T, L), dtype=torch.float32, device=dev)
+    ray_maxent = torch.empty((R,), dtype=torch.float32, device=dev)
+    if T == 0:
+        return entries, ray_maxent
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib.hikari_tile_entries(
+            o.data_ptr(), inv_d.data_ptr(), maxd.data_ptr(),
+            lo.data_ptr() if have_range else None, hi.data_ptr() if have_range else None,
+            cmin.data_ptr(), cmax.data_ptr(), cvalid.data_ptr(), T, L, cluster,
+            int(have_range), entries.data_ptr(), ray_maxent.data_ptr(), stream,
+        )
+    if err:
+        raise RuntimeError(f"tile_cluster_entries kernel launch failed: "
+                           f"{_lib.hikari_tile_entries_error_string(err).decode()}")
+    launches += 1
     return entries, ray_maxent
 
 
