@@ -32,14 +32,22 @@ Phases, each reported on its own line:
      instructions per pair on the pair loop's common path, where no ray of
      the warp takes the pair (``cuobjdump``), and the issue floor they give.
      The phase-1 kernel (K2·p1, ``tile_entries.cu``) against its twin at
-     (c) and (d), with and without the rays' prim ranges: entries, per-ray
-     max entries and the sorted order bit for bit; its CUDA-event ms, its
-     twin's and its bound at (c), and the stable sort's ms on its own line.
-     The plan kernel (K3·pAB, ``scatter_plan.cu``) against its twin at
-     (e), (f), (e) with ``items_per_ray=2`` (drops) and (e) with one
-     instance's prim range a ray: meta, items and the dropped count bit for
-     bit; at (e) its two launches' device ms, the whole call's ms, its
-     twin's and its bound.
+     (c), (d) and (c) with warps that mix clean and NaN rays over clusters
+     with non-finite bounds (``slab_hazards``), with and without the rays'
+     prim ranges: entries, per-ray max entries and the sorted order bit for
+     bit; its CUDA-event ms, its twin's, its bound and its SASS
+     instructions a slab test with the issue floor at (c) (the earlier
+     designs' times are in PERF.md §6), and the stable sort's ms on its
+     own line. The plan kernel (K3·pAB,
+     ``scatter_plan.cu``: the staged table, the count launch with one slab
+     test a pair, the place launch from the ballot masks) against its twin
+     at (e), (f), (e) with ``items_per_ray=2`` (drops), (e) with one
+     instance's prim range a ray and (e) with the hazards: meta, items and
+     the dropped count bit for bit; at (e) its kernels' device ms, the
+     whole call's ms, its twin's, its bound, its SASS a test with
+     the issue floor and the bytes of its masks. The cluster counts at (c)
+     and (e), 2,153 and 4,305, are no multiple of the kernels' stage of
+     128 clusters.
      The scatter kernel against its twin on every item, (e) on the (c)
      rays, with its hits against the tile walk's, (f) on the (d) rays;
      CUDA-event times at (e) of the kernel, phases A+B, the segment-min, the
@@ -51,8 +59,9 @@ Phases, each reported on its own line:
      tile walk) and of ``city_bench_scatter`` (the city bench frame: 512x512
      output from 256x256 with the post chain and ``tracer="scatter"``,
      every trace through the scatter kernel); on each path the phase
-     kernels launch once a trace kernel launch (K2·p1 with the tile walk,
-     K3·pAB with the scatter kernel), on the cornell paths never. [check]: a small city
+     kernels launch with every trace kernel launch (K2·p1's two with the
+     tile walk, K3·pAB's three with the scatter kernel), on the cornell
+     paths never; both paths' peaks beside the memory live before each. [check]: a small city
      (blocks=3, 18,422 triangles), card against CPU, at 48x63 without the
      post chain and at 48x60 with the bench settings and the scatter tracer.
   5. primitives. [kernel]: (g) the window-table pack (T1) at the TPU
@@ -222,6 +231,9 @@ PAIR_FLOPS = 30
 # A ray/cluster-AABB slab test (K2·p1, K3·pAB): 6 subtractions, 6
 # multiplications, 12 min/max and the compares, ~30 FP32 operations.
 SLAB_FLOPS = 30
+# The kernels of one scatter_plan call (K3·pAB): the staged table, the
+# count launch, the place launch.
+PLAN_KERNELS = ("slab_table", "scatter_plan_count", "scatter_plan_place")
 # The primitives' shapes: the TPU tool's (tools/bench_pallas_prims.py).
 PACK_PLANES, PACK_HW, PACK_DXS = 8, (1080, 1920), list(range(16))
 GATHER_CASES = (((512, 128), 1, 32), ((512, 128), 1, 128), ((512, 128), 1, 1), ((8, 1024), 0, 32))
@@ -561,11 +573,12 @@ def run_main_path(name, scene, cam, settings, device, tag="[main]"):
     peak = torch.cuda.max_memory_allocated(device)
     if not (traces > 0 and sum(launches.values()) == traces):
         raise AssertionError(f"{name}: kernel launches {launches} for {traces} CUDA trace calls")
-    # The slab-test phases before the tile walk and the scatter kernel (the
-    # plan launches its kernel twice a call).
+    # The slab-test phases before the tile walk and the scatter kernel:
+    # K2·p1 launches two kernels a call (table, tests), K3·pAB three
+    # (table, count, place).
     phases = {"tile_entries": ttiled.launches, "scatter_plan": sc.plan_launches}
-    if phases != {"tile_entries": launches["tile_walk"],
-                  "scatter_plan": 2 * launches["scatter_items"]}:
+    if phases != {"tile_entries": 2 * launches["tile_walk"],
+                  "scatter_plan": 3 * launches["scatter_items"]}:
         raise AssertionError(f"{name}: phase kernel launches {phases} for trace kernel launches "
                              f"{launches}")
     stats = {k: float(v) for k, v in out.stats.items()}
@@ -680,7 +693,7 @@ def profile_frames(name, advance, state, frames=2, top=12):
             for e in sorted(bwd, key=lambda e: -e.device_time_total)[:top]))
     ours = [e for e in kernels
             if any(k in e.key for k in ("closest_hit", "tile_walk", "scatter_items",
-                                        "tile_entries_kernel", "scatter_plan_kernel"))]
+                                        "tile_entries_kernel", "scatter_plan_", "slab_table"))]
     log(f"[profile]   the trace kernels: " + (", ".join(
         f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms in {e.count} launches" for e in ours)
         or "none"))
@@ -1966,7 +1979,7 @@ def run_city_tiled(city, cam, settings, device):
     """[tiled] ``city_tiled``: ``TILED_FRAMES`` frames of ``city_path``'s
     settings with ``tracer="tiled"``, counts set to 0 just before: finite
     and lit, no trace kernel launch, every trace through the tiled tracer,
-    whose phase 1 launches the phase-1 kernel once a call."""
+    whose phase 1 launches K2·p1's two kernels (table, tests) a call."""
     import numpy as np
     import torch
 
@@ -2003,13 +2016,13 @@ def run_city_tiled(city, cam, settings, device):
     mean_lum = float(luminance(img[..., :3]).mean())
     nonfinite = int((~torch.isfinite(img)).sum())
     p1 = ttiled.launches
-    if (any(counts.values()) or not calls[0] or p1 != calls[0] or nonfinite
+    if (any(counts.values()) or not calls[0] or p1 != 2 * calls[0] or nonfinite
             or not mean_lum > 0.0):
         raise AssertionError(f"[tiled] city_tiled: counts {counts}, tiled calls {calls[0]}, "
                              f"phase-1 launches {p1}, {nonfinite} non-finite pixels, mean "
                              f"luminance {mean_lum}")
     log(f"[tiled] city_tiled {s.width}x{s.height}, {TILED_FRAMES} frames: {calls[0]} tiled "
-        f"calls = phase-1 kernel launches {p1}, trace kernel launches and trace_calls {counts}; "
+        f"calls, phase-1 kernel launches {p1} (two a call), trace kernel launches and trace_calls {counts}; "
         f"ms/frame "
         f"{', '.join(f'{m:.1f}' for m in frame_ms)} (median {np.median(frame_ms):.1f}); peak "
         f"memory {peak / 2**30:.3f} GiB; mean luminance {mean_lum:.4f}; non-finite pixels 0")
@@ -2392,10 +2405,42 @@ def entries_bound(R, L):
 
 
 def plan_bound(R, L, cap):
-    """K3·pAB's bound: one slab test a (ray, cluster) pair (the kernel
-    makes two); each ray's o, d, maxd, lo, hi read (36 B), the bounds read,
-    meta (8 B a block) and the items (8 B a slot) written."""
+    """K3·pAB's bound: one slab test a (ray, cluster) pair; each ray's o,
+    d, maxd, lo, hi read (36 B), the bounds read, meta (8 B a block) and
+    the items (8 B a slot) written (the ballot masks are the kernel's own
+    intermediate, not counted)."""
     return bound_ms(R * L * SLAB_FLOPS, R * 36 + L * 25 + cap // 128 * 8 + cap * 8)
+
+
+def slab_hazards(cmin, cmax, cvalid, o, d, maxd, lo, hi):
+    """The phase kernels' hazards on a case of the card: a copy of the
+    cluster bounds where cluster 3 has a NaN min x, 10 a min x of -inf, 11
+    a max y of +inf, 12 a min z of +inf (above its max) and 20 is invalid,
+    and of the rays where every 97th has an infinite direction component
+    (inv 0), every 101st a NaN origin component and every 103rd a NaN
+    direction: warps that mix clean and unclean rays beside clean warps.
+    Returns (cmin, cmax, cvalid, o, d, maxd, lo, hi)."""
+    cmin, cmax, cvalid, o, d = (x.clone() for x in (cmin, cmax, cvalid, o, d))
+    cmin[3, 0] = float("nan")
+    cmin[10, 0] = float("-inf")
+    cmax[11, 1] = float("inf")
+    cmin[12, 2] = float("inf")
+    cvalid[20] = False
+    d[::97, 0] = float("inf")
+    o[::101, 1] = float("nan")
+    d[::103, 2] = float("nan")
+    return cmin, cmax, cvalid, o, d, maxd, lo, hi
+
+
+def slab_sass(source, kernel, tests):
+    """(SASS instructions a slab test on the common path of the kernel's
+    test loop (``ab_trace_kernels.slab_loop``), the issue floor ms of
+    ``tests`` tests)."""
+    from hikari_tpu_torch.tools import ab_trace_kernels as ab
+
+    _, common, n = ab.slab_loop(ab.kernel_sass(source), kernel)
+    ipt = common / max(n, 1)
+    return ipt, ab.issue_floor_ms(tests, ipt)
 
 
 def check_entries(label, cmin, cmax, cvalid, o, d, maxd, lo, hi, cluster):
@@ -2493,7 +2538,7 @@ def time_phases_city8(device):
     _, cmin_s, cmax_s, cvalid_s = tw.pack_clusters(buffers, sc.CLUSTER)
     plan_args = (cmin_s, cmax_s, cvalid_s, o, d, maxd, lo, hi)
     check_plan(f"[bench_trace] city-8 ({R} rays)", *plan_args)  # its error is 0 or it raises
-    pab_ms = device_ms(lambda: sc.scatter_plan(*plan_args), 10, names=("scatter_plan_kernel",))
+    pab_ms = device_ms(lambda: sc.scatter_plan(*plan_args), 10, names=PLAN_KERNELS)
     pab_call = cuda_time_ms(lambda: sc.scatter_plan(*plan_args), 10)
     pab_plain = cuda_time_ms(lambda: sc.scatter_plan_reference(*plan_args), 2, warmup=1)
     Ls = cmin_s.shape[0]
@@ -2502,8 +2547,8 @@ def time_phases_city8(device):
         f"{p1_ms:.4f} ms, twin {p1_plain:.4f} ms, bound {p1_bound:.4f} ms ({p1_by})")
     log(f"[time] sort at city-8: torch.sort(stable) of the ({R // 512}, {L}) entries "
         f"{sort_ms:.4f} ms")
-    log(f"[time] K3·pAB at [bench_trace] city-8 ({R} rays x {Ls} clusters of 128): the two "
-        f"launches {pab_ms:.4f} ms device, the whole scatter_plan call {pab_call:.4f} ms, twin "
+    log(f"[time] K3·pAB at [bench_trace] city-8 ({R} rays x {Ls} clusters of 128): its kernels "
+        f"{pab_ms:.4f} ms device, the whole scatter_plan call {pab_call:.4f} ms, twin "
         f"{pab_plain:.4f} ms, bound {pab_bound:.4f} ms ({pab_by})")
     del buffers, o, d, entries
     torch.cuda.empty_cache()
@@ -2657,7 +2702,9 @@ def main():
     walk_d, phase1_d = walk_case(city, *city_random_rays(city, dev))
     err_d = compare("(d) city random rays", tw.tile_walk(*walk_d), tw.tile_walk_reference(*walk_d))
     err_p1 = max(check_entries("(c) city 512x512 primary", *phase1_c),
-                 check_entries("(d) city random rays", *phase1_d))
+                 check_entries("(d) city random rays", *phase1_d),
+                 check_entries("(c) mixed NaN/clean warps, non-finite bounds",
+                               *slab_hazards(*phase1_c[:8]), phase1_c[8]))
     tested = got_c[4]
     torch.cuda.synchronize()
     tw_ms = cuda_time_ms(lambda: tw.tile_walk(*walk_c), 20)
@@ -2694,8 +2741,11 @@ def main():
         f"{longest * PAIR_FLOPS / (PEAK_FP32 / ab.NUM_SMS) * 1e3:.4f} ms; K2 SASS "
         f"{tw_ipp:.2f} instructions a pair (common path), issue floor "
         f"{ab.issue_floor_ms(pairs, tw_ipp):.4f} ms")
-    log(f"[time] (c) K2·p1 ({Rc} rays x {L} clusters of {cluster}, {Rc * L} slab tests): kernel "
-        f"{p1_ms:.4f} ms, twin {p1_plain_ms:.4f} ms, bound {p1_bound:.4f} ms ({p1_by})")
+    p1_ipt, p1_floor = slab_sass(ttiled.SOURCE, "tile_entries", Rc * L)
+    log(f"[time] (c) K2·p1 ({Rc} rays x {L} clusters of {cluster} = {L // 128} stages of 128 + "
+        f"{L % 128}, {Rc * L} slab tests): kernel {p1_ms:.4f} ms (earlier designs: PERF.md §6, "
+        f"K2·p1's row), twin {p1_plain_ms:.4f} ms, bound {p1_bound:.4f} ms ({p1_by}); SASS {p1_ipt:.2f} "
+        f"instructions a test on the test loop's common path, issue floor {p1_floor:.4f} ms")
     log(f"[time] (c) sort: torch.sort(stable) of the ({T}, {L}) entries {sort_ms:.4f} ms")
     del entries_c
 
@@ -2746,10 +2796,12 @@ def main():
     hi_r = (lo_r + city.inst_prim_count[rng_inst]).to(torch.int32).contiguous()
     err_pab.append(check_plan("(e) one instance's prim range a ray", *plan_e_args[:6], lo_r,
                               hi_r)[1])
+    err_pab.append(check_plan("(e) mixed NaN/clean warps, non-finite bounds",
+                              *slab_hazards(*plan_e_args))[1])
     del rng_inst, lo_r, hi_r
     meta_e, items_e, _ = plan_e
     torch.cuda.synchronize()
-    pab_ms = device_ms(lambda: sc.scatter_plan(*plan_e_args), 10, names=("scatter_plan_kernel",))
+    pab_ms = device_ms(lambda: sc.scatter_plan(*plan_e_args), 10, names=PLAN_KERNELS)
     pab_call_ms = cuda_time_ms(lambda: sc.scatter_plan(*plan_e_args), 10)
     pab_plain_ms = cuda_time_ms(lambda: sc.scatter_plan_reference(*plan_e_args), 2, warmup=1)
     pab_bound, pab_by = plan_bound(Rc, cmin_s.shape[0], items_e.shape[0])
@@ -2773,15 +2825,23 @@ def main():
         f"{plan_ms:.4f} ms; segment-min {segmin_ms:.4f} ms; whole trace_rays(method='scatter') "
         f"{sc_trace_ms:.4f} ms; twin {sc_plain_ms:.4f} ms; K3 SASS {sc_ipp:.2f} instructions a "
         f"pair (common path), issue floor {ab.issue_floor_ms(sc_pairs, sc_ipp):.4f} ms")
-    log(f"[time] (e) K3·pAB ({Rc} rays x {cmin_s.shape[0]} clusters of 128, "
-        f"{Rc * cmin_s.shape[0]} slab tests a launch): the two launches {pab_ms:.4f} ms device, "
-        f"the whole scatter_plan call {pab_call_ms:.4f} ms, twin {pab_plain_ms:.4f} ms, bound "
-        f"{pab_bound:.4f} ms ({pab_by})")
+    Ls = cmin_s.shape[0]
+    pab_ipt, pab_floor = slab_sass(sc.PLAN_SOURCE, "scatter_plan", Rc * Ls)
+    log(f"[time] (e) K3·pAB ({Rc} rays x {Ls} clusters of 128 = {Ls // 128} stages + {Ls % 128}, "
+        f"{Rc * Ls} slab tests, one a pair): its kernels (table, count, place) {pab_ms:.4f} ms "
+        f"device (earlier designs: PERF.md §6, K3·pAB's row), the whole "
+        f"scatter_plan call "
+        f"{pab_call_ms:.4f} ms, twin {pab_plain_ms:.4f} ms, bound {pab_bound:.4f} ms ({pab_by}); "
+        f"SASS {pab_ipt:.2f} instructions a test on the count loop's common path, issue floor "
+        f"{pab_floor:.4f} ms; ballot masks {sc.mask_bytes(Rc, Ls)} bytes "
+        f"({sc.mask_bytes(Rc, Ls) / 2**30:.4f} GiB)")
     check_cluster_errors("(e) timing")
     del plan_e, fields_e, got_e, hit_e, hit_c, meta_e, items_e, f_rays
 
     # ---- 4c. city_path and city_bench_scatter ----
+    live = {"city_path": torch.cuda.memory_allocated(dev) / 2**30}
     city_state, city_launches = run_main_path("city_path", city, city_cam, city_settings, dev)
+    peaks = {"city_path": torch.cuda.max_memory_allocated(dev) / 2**30}
     if city_launches["closest_hit"] or city_launches["scatter_items"]:
         raise AssertionError(f"city_path sent a trace to another search than K2: {city_launches}")
     if not city_launches["tile_entries"]:
@@ -2790,7 +2850,12 @@ def main():
         profile_frames("city_path", render_advance(city, city_cam, city_settings), city_state)
     del city_state
     city_bench = bench_settings(city_settings, CITY_HW[1], CITY_HW[0], "scatter")
+    live["city_bench_scatter"] = torch.cuda.memory_allocated(dev) / 2**30
     cb_state, cb_launches = run_main_path("city_bench_scatter", city, city_cam, city_bench, dev)
+    peaks["city_bench_scatter"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    log("[main] peaks: " + "; ".join(
+        f"{k} {v:.3f} GiB, of it {live[k]:.3f} live before the path" for k, v in peaks.items())
+        + f"; the (e) plan's ballot masks {sc.mask_bytes(Rc, cmin_s.shape[0]) / 2**30:.4f} GiB")
     if cb_launches["closest_hit"] or cb_launches["tile_walk"]:
         raise AssertionError(f"city_bench_scatter sent a trace past the scatter kernel: {cb_launches}")
     if not cb_launches["scatter_plan"]:

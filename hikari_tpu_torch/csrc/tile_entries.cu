@@ -15,50 +15,80 @@
 // f32; with a prim range lo, hi (R,) i32; cmin, cmax (L,3) f32; cvalid
 // (L,) bool; R = T * 512. Outputs: entries (T,L) f32, F32_MAX where no ray
 // of the tile enters the cluster; ray_maxent (R,) f32, -1 where the ray
-// enters none. The slab test and its NaN and signed-zero rules are in
-// slab_test.cuh. Entries that enter are never NaN, so the min over the
-// tile and the max over the clusters are exact in any order: the result is
-// the twin's bit for bit.
+// enters none. The slab test, the staged table and the NaN and signed-zero
+// rules are in slab_test.cuh. Entries that enter are never NaN, so the min
+// over the tile and the max over the clusters are exact in any order: the
+// result is the twin's bit for bit.
 //
 // What bounds it on this card: operations. Each ray/cluster test is ~30
-// FP32 operations (6 subtractions, 6 multiplications, 12 min/max, the
+// FP32 operations (6 subtractions, 6 multiplications, 11 min/max, the
 // compares); the bytes (rays, bounds, the (T,L) entries written once) are
 // a few MB. At 262,144 rays x 2,153 clusters that is 564 M tests, ~0.25 ms
 // at 67 TFLOP/s. The design:
 //   - one block per tile, one ray per thread (16 warps); the ray's origin,
 //     inverse direction, max distance and range live in registers;
-//   - clusters in batches of 32, their bounds staged in shared memory by
-//     the first warp (two 16-byte rows a cluster; every lane reads the same
-//     row, a broadcast);
-//   - per cluster the warp's least entry by shuffles, skipped (one vote)
-//     when no lane of the warp enters it; lane k keeps cluster k's, then
-//     the first warp takes the least of the 16 warps' from shared memory
-//     and writes the batch's 32 entries of the tile;
+//   - the call first builds the staged table (slab_table_kernel); the
+//     kernel brings it into shared memory kStage clusters at a time,
+//     double-buffered by cp.async, behind one barrier a stage; every lane
+//     reads the same 32-byte row, a broadcast;
+//   - per warp a vote whether all its rays are clean, whether all take
+//     every cluster's range and whether all share one octant: the test
+//     without NaN compares, without range compares and without the
+//     per-axis min and max, where they cannot matter (slab_test.cuh);
+//   - per test the entry as the signed-int max of tlo's bits and 0 (the
+//     canonical +0.0 for every zero) and one vote; where a ray of the warp
+//     enters, the warp's least entry in one __reduce_min_sync on the u32
+//     bits (F32_MAX for a ray that misses): entries that enter are
+//     non-negative and never NaN, +0.0 canonical, and non-negative floats
+//     order as their bits. Lane 0 stores it into the warp's row of the
+//     stage in shared memory (F32_MAX where no ray enters); behind the next
+//     stage's barrier thread k takes the least of the 16 warps' and writes
+//     entry k of the tile;
 //   - the per-ray maximum stays in a register and is written once.
 
 #include "slab_test.cuh"
 
 namespace {
 
-using hikari_slab::Bounds;
-using hikari_slab::kBatch;
-using hikari_slab::kF32Max;
+using hikari_slab::kF32MaxBits;
 using hikari_slab::kFull;
+using hikari_slab::kStage;
 using hikari_slab::SlabRay;
 
 constexpr int kTileRays = 512;
 constexpr int kWarps = kTileRays / 32;
 
-template <bool kRange>
+// The tests of one stage for one warp in the form kMode (slab_test.cuh
+// warp_mode): the bits of the warp's least entry into cluster k into
+// wmin[k], which holds F32_MAX's bits where no ray of the warp enters.
+template <int kMode>
+__device__ __forceinline__ void entry_stage(const float4* rows, int nk, const SlabRay<float>& r,
+                                            unsigned* wmin, bool lane0, float& maxent) {
+#pragma unroll 4
+  for (int k = 0; k < nk; ++k) {
+    float tlo, thi;
+    bool ok;
+    hikari_slab::slab<kMode>(rows[2 * k], rows[2 * k + 1], r, tlo, thi, ok);
+    // max(tlo, 0) with every zero +0.0 (tlo is not NaN where it counts).
+    const unsigned bits = static_cast<unsigned>(max(__float_as_int(tlo), 0));
+    const float entry = __uint_as_float(bits);
+    const bool hit = ok & (thi >= entry) & (entry < r.maxd);
+    if (__any_sync(kFull, hit)) {  // most clusters: no ray of the warp enters
+      if (hit) maxent = fmaxf(maxent, entry);
+      const unsigned v = __reduce_min_sync(kFull, hit ? bits : kF32MaxBits);
+      if (lane0) wmin[k] = v;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kTileRays)
     tile_entries_kernel(const float* __restrict__ o, const float* __restrict__ inv,
                         const float* __restrict__ maxd, const int* __restrict__ lo,
-                        const int* __restrict__ hi, const float* __restrict__ cmin,
-                        const float* __restrict__ cmax, const unsigned char* __restrict__ cvalid,
+                        const int* __restrict__ hi, const float4* __restrict__ table,
                         int num_clusters, int cluster, float* __restrict__ entries,
                         float* __restrict__ ray_maxent) {
-  __shared__ Bounds bounds;
-  __shared__ float warp_min[kWarps][kBatch];
+  __shared__ __align__(16) float4 rows[2][2 * kStage];
+  __shared__ unsigned wmin[2][kWarps][kStage];
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t ray = static_cast<size_t>(blockIdx.x) * kTileRays + threadIdx.x;
@@ -70,62 +100,71 @@ __global__ void __launch_bounds__(kTileRays)
   r.iy = inv[3 * ray + 1];
   r.iz = inv[3 * ray + 2];
   r.maxd = maxd[ray];
-  if (kRange) {  // lo.to(torch.float32), hi.to(torch.float32): round to nearest
+  if (lo != nullptr) {  // lo.to(torch.float32), hi.to(torch.float32): round to nearest
     r.lo = __int2float_rn(lo[ray]);
     r.hi = __int2float_rn(hi[ray]);
   } else {
     r.lo = -__int_as_float(0x7f800000);
     r.hi = __int_as_float(0x7f800000);
   }
+  const int mode = hikari_slab::warp_mode(r, num_clusters, cluster);
+  const bool lane0 = lane == 0;
   float maxent = -1.f;
   float* out = entries + static_cast<size_t>(blockIdx.x) * num_clusters;
+  const int stages = (num_clusters + kStage - 1) / kStage;
 
-  for (int c0 = 0; c0 < num_clusters; c0 += kBatch) {
-    const int nk = min(kBatch, num_clusters - c0);
-    // Past the last barrier every warp has read the previous batch's bounds
-    // and the first warp has read the warps' minima.
-    hikari_slab::stage_bounds<float>(bounds, cmin, cmax, cvalid, c0, nk, cluster);
+  hikari_slab::copy_stage(rows[0], table, 0, num_clusters);
+  for (int s = 0; s <= stages; ++s) {
+    hikari_slab::wait_copies();
+    // Past this barrier stage s is in rows[s & 1], every warp is done with
+    // stage s - 1's rows and has stored its minima of stage s - 1.
     __syncthreads();
-    float mine = kF32Max;  // lane k: the warp's least entry into cluster c0 + k
-    for (int k = 0; k < nk; ++k) {
-      float entry;
-      const bool hit = hikari_slab::slab_hit(bounds.a[k], bounds.b[k], r, entry);
-      if (hit) maxent = fmaxf(maxent, entry);
-      if (__any_sync(kFull, hit)) {
-        float v = hit ? entry : kF32Max;
+    if (s + 1 < stages) hikari_slab::copy_stage(rows[(s + 1) & 1], table, s + 1, num_clusters);
+    if (s > 0) {  // the entries of stage s - 1
+      const int c0 = (s - 1) * kStage, nk = min(kStage, num_clusters - c0);
+      if (threadIdx.x < nk) {
+        unsigned m = wmin[(s - 1) & 1][0][threadIdx.x];
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, off));
-        if (lane == k) mine = v;
+        for (int w = 1; w < kWarps; ++w) m = min(m, wmin[(s - 1) & 1][w][threadIdx.x]);
+        out[c0 + threadIdx.x] = __uint_as_float(m);
       }
     }
-    warp_min[warp][lane] = mine;
-    __syncthreads();
-    if (warp == 0 && lane < nk) {
-      float m = warp_min[0][lane];
-#pragma unroll
-      for (int w = 1; w < kWarps; ++w) m = fminf(m, warp_min[w][lane]);
-      out[c0 + lane] = m;
-    }
+    if (s == stages) break;
+    const int nk = min(kStage, num_clusters - s * kStage);
+    unsigned* wm = wmin[s & 1][warp];
+    const float4* rs = rows[s & 1];
+    for (int k = lane; k < nk; k += 32) wm[k] = kF32MaxBits;  // a warp no ray enters
+    __syncwarp();
+    hikari_slab::with_mode(mode, [&](auto m) {
+      entry_stage<decltype(m)::value>(rs, nk, r, wm, lane0, maxent);
+    });
   }
   ray_maxent[ray] = maxent;
 }
 
 }  // namespace
 
+// The staged table (L, 8) f32 into `table`, then the entries (T, L) and
+// the max entries (R,), one block a tile. lo and hi may be null (no range).
+// `*launched` gets the kernels launched (2, or 0 when there is no work).
 extern "C" int hikari_tile_entries(const float* o, const float* inv, const float* maxd,
                                    const int* lo, const int* hi, const float* cmin,
                                    const float* cmax, const unsigned char* cvalid, int num_tiles,
-                                   int num_clusters, int cluster, int have_range, float* entries,
-                                   float* ray_maxent, void* stream) {
+                                   int num_clusters, int cluster, float* table, float* entries,
+                                   float* ray_maxent, void* stream, int* launched) {
+  *launched = 0;
   if (num_tiles <= 0 || num_clusters <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (have_range)
-    tile_entries_kernel<true><<<num_tiles, kTileRays, 0, s>>>(
-        o, inv, maxd, lo, hi, cmin, cmax, cvalid, num_clusters, cluster, entries, ray_maxent);
-  else
-    tile_entries_kernel<false><<<num_tiles, kTileRays, 0, s>>>(
-        o, inv, maxd, lo, hi, cmin, cmax, cvalid, num_clusters, cluster, entries, ray_maxent);
-  return static_cast<int>(cudaGetLastError());
+  float4* t = reinterpret_cast<float4*>(table);
+  hikari_slab::launch_table<float>(cmin, cmax, cvalid, num_clusters, cluster, t, s);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *launched = 1;
+  tile_entries_kernel<<<num_tiles, kTileRays, 0, s>>>(o, inv, maxd, lo, hi, t, num_clusters,
+                                                       cluster, entries, ray_maxent);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) *launched = 2;
+  return static_cast<int>(err);
 }
 
 extern "C" const char* hikari_tile_entries_error_string(int code) {

@@ -1,13 +1,13 @@
 """Time the main paths of several checkouts of this repository in turn on
-one card, so that two versions compare inside one run (run them as parent,
-change, change, parent).
+one card, so that two versions compare inside one run (run them in
+alternating pairs: parent, change, change, parent, parent, change).
 
     python -m hikari_tpu_torch.tools.ab_paths ROOT [ROOT ...]
 
 Each ROOT is the root of a checkout (a directory holding
-``hikari_tpu_torch`` and ``chip_smoke.py``). For each, a fresh process
-builds that checkout's trace kernels and, per path, prints
-``chip_smoke.run_main_path``'s ``[main]`` lines (8 frames: ms/frame, peak
+``hikari_tpu_torch`` and ``chip_smoke.py``); a root may be given more
+than once. For each, a fresh process builds that checkout's trace
+kernels and, per path, prints ``chip_smoke.run_main_path``'s ``[main]`` lines (8 frames: ms/frame, peak
 memory, launches) and ``chip_smoke.profile_frames``' ``[profile]`` lines
 (two more frames under torch.profiler: device busy share, launches, the
 forward's and the backward's device time, the kernels and backward nodes
@@ -18,12 +18,15 @@ the scatter kernel); then ``chip_smoke.run_grad_path``'s ``[grad]`` lines
 for 8 fwd+grad frames of the bench frame (``bench_config("cornell")``)
 through ``parallel.make_train_step`` (ms/frame, peak memory, closest-hit
 launches in the forward and the backward, each leaf's gradient) and its
-``[profile]``.
+``[profile]``. At the end, per path, every run's device ms of the two
+profiled frames with the peak memory of its 8 frames, read from those
+lines (``[readings]``).
 """
 
 from __future__ import annotations
 
 import os
+import re
 import subprocess
 import sys
 
@@ -72,15 +75,43 @@ def time_one(root: str) -> None:
                       state)
 
 
+def readings(stdout: str, run: int) -> list:
+    """(path, run, device ms of the two profiled frames, peak GiB of the 8
+    frames) of one run's output, from its ``[profile]`` and
+    ``[main]``/``[grad]`` lines."""
+    peaks, out = {}, []
+    for line in stdout.splitlines():
+        m = re.match(r"\[(?:main|grad)\] (.+?) \(.*peak memory ([0-9.]+) GiB", line)
+        if m:
+            peaks[m.group(1)] = float(m.group(2))
+        m = re.match(r"\[profile\] (.+?) \([^)]*\), \d+ frames: .*device busy ([0-9.]+) ms", line)
+        if m:
+            path = m.group(1)
+            peak = peaks.get("cornell_bench" if path == "cornell_bench fwd+grad" else path)
+            out.append((path, run, float(m.group(2)), peak))
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--one"]:
         time_one(argv[1])
         return 0
-    for root in argv:
+    got = []
+    for i, root in enumerate(argv):
         root = os.path.abspath(root)
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root], check=True,
-                       cwd=root)
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root],
+                             cwd=root, capture_output=True, text=True)
+        sys.stdout.write(run.stdout)
+        sys.stdout.flush()
+        if run.returncode:
+            sys.stderr.write(run.stderr[-8000:])
+            raise RuntimeError(f"{root}: exit code {run.returncode}")
+        got += [(path, f"run {i + 1} ({os.path.basename(root)})", ms, peak)
+                for path, _, ms, peak in readings(run.stdout, i + 1)]
+    for path in dict.fromkeys(r[0] for r in got):
+        print(f"[readings] {path}: device ms in 2 frames (peak GiB of 8 frames): " + ", ".join(
+            f"{run} {ms:.2f} ({peak:.3f})" for p, run, ms, peak in got if p == path), flush=True)
     return 0
 
 

@@ -3,11 +3,12 @@ kernel (K3) and the gathers (T2/T3) of several checkouts of this
 repository in turn on one card, so that two versions compare inside one
 run (run them as parent, change, change, parent).
 
-    python -m hikari_tpu_torch.tools.ab_trace_kernels ROOT [ROOT ...]
+    python -m hikari_tpu_torch.tools.ab_trace_kernels [--slab] ROOT [ROOT ...]
 
 Each ROOT is the root of a checkout (a directory holding
 ``hikari_tpu_torch`` and ``chip_smoke.py``). For each, a fresh process
-builds that checkout's kernels and prints:
+builds that checkout's kernels and prints (with ``--slab`` only the
+``[slab]``, ``[sass]`` and ``[bench_trace]`` lines):
 
 - ``[ab]``: the registers ptxas gave each kernel and the CUDA-event time
   of K1 on the 1080p cornell primary rays (case (a) of ``chip_smoke.py``)
@@ -36,6 +37,18 @@ builds that checkout's kernels and prints:
   schedulers x 32 lanes x 1.98 GHz); for K1 also the resident warps per SM at (a) and (b)
   (the card's occupancy query).
   With ``AB_SASS_DIR`` set, the listings are written there;
+- ``[slab]``: the slab-test phases: K2·p1 (``tile_cluster_entries``) at
+  (c) and (d) and K3·pAB (``scatter_plan``) at (e) and (f), CUDA-event ms
+  of the call and, for K3·pAB, the device time of its kernels under
+  torch.profiler (the whole call also runs torch's scan and block map
+  between its launches);
+  then for each the SASS of its innermost test loop: instructions on the
+  loop's common path per slab test (the loop whose common path has the
+  fewest a test; a test is six ``FMUL``, the slab's products: nothing else
+  in those kernels multiplies), the tests of one call and the issue floor
+  they give;
+- ``[bench_trace]`` (``--slab`` only): the pallas_tiled and scatter rows
+  of the trace bench on city-551k and terrain-1m, with rates and peaks;
 - ``[prims]``: the device time per call under torch.profiler of T2 at
   (512, 512) and T3 at the TPU tool's four shapes, of ``torch.gather`` at
   T2's shape and T3's x1 shape, and, where the checkout has it, of an
@@ -75,6 +88,42 @@ def sass_loop(sass: str, kernel: str):
     fast path's range) and the update of the best, which a warp runs only
     when one of its rays takes the pair. It is what a pair costs when no
     ray of the warp takes it, the usual case."""
+    best = None
+    for body in _functions(sass, kernel):  # each function (template instance) on its own addresses
+        for span in _loops(body):
+            if sum("MUFU.RCP" in i for _, i in span) >= 8 and (best is None or len(span) < len(best)):
+                best = span
+    if best is None:
+        return 0, 0, 0
+    skipped = _skipped(best, "MUFU.RCP")
+    return len(best), len(best) - len(skipped), sum("MUFU.RCP" in i for _, i in best)
+
+
+def slab_loop(sass: str, kernel: str):
+    """(instructions, common-path instructions, slab tests) of the test
+    loop of ``kernel`` (a function whose name holds it) in a ``cuobjdump
+    -sass`` listing: among the backward-branch ranges that hold at least
+    one test (six ``FMUL``: the slab's products), the one whose common
+    path has the fewest instructions a test, i.e. the innermost unrolled
+    loop of the warps that take the test without NaN and range compares.
+    The common path leaves out what a forward branch inside the loop skips
+    when it holds no ``FMUL`` (the parent's shuffle tree of a warp where
+    a ray enters)."""
+    best, best_rate = (0, 0, 0), None
+    for body in _functions(sass, kernel):
+        for span in _loops(body):
+            tests = sum("FMUL" in i for _, i in span) // 6
+            if tests == 0:
+                continue
+            common = len(span) - len(_skipped(span, "FMUL"))
+            if best_rate is None or common / tests < best_rate:
+                best, best_rate = (len(span), common, tests), common / tests
+    return best
+
+
+def _functions(sass: str, kernel: str):
+    """Each function of the listing whose name holds ``kernel``: a list of
+    (address, instruction)."""
     bodies, body = [], None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -85,26 +134,30 @@ def sass_loop(sass: str, kernel: str):
         m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
         if body is not None and m:
             body.append((int(m.group(1), 16), m.group(2)))
-    best = None
-    for body in bodies:  # each function (template instance) on its own addresses
-        for addr, ins in body:
-            m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", ins)
-            if not m or int(m.group(1), 16) >= addr:
-                continue
-            span = [(a, i) for a, i in body if int(m.group(1), 16) <= a <= addr]
-            if sum("MUFU.RCP" in i for _, i in span) >= 8 and (best is None or len(span) < len(best)):
-                best = span
-    if best is None:
-        return 0, 0, 0
-    skipped = set()
-    for addr, ins in best:
+    return bodies
+
+
+def _loops(body):
+    """The backward-branch ranges of a function, each a list of
+    (address, instruction)."""
+    for addr, ins in body:
         m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", ins)
-        if not m or not addr < int(m.group(1), 16) <= best[-1][0]:
+        if m and int(m.group(1), 16) < addr:
+            yield [(a, i) for a, i in body if int(m.group(1), 16) <= a <= addr]
+
+
+def _skipped(span, marker: str) -> set:
+    """Addresses of ``span`` that a forward branch inside it skips, where
+    the skipped part holds no ``marker``."""
+    skipped = set()
+    for addr, ins in span:
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", ins)
+        if not m or not addr < int(m.group(1), 16) <= span[-1][0]:
             continue
-        inside = [(a, i) for a, i in best if addr < a < int(m.group(1), 16)]
-        if not any("MUFU.RCP" in i for _, i in inside):
+        inside = [(a, i) for a, i in span if addr < a < int(m.group(1), 16)]
+        if not any(marker in i for _, i in inside):
             skipped.update(a for a, _ in inside)
-    return len(best), len(best) - len(skipped), sum("MUFU.RCP" in i for _, i in best)
+    return skipped
 
 
 def cuobjdump(source, flag: str) -> str:
@@ -253,9 +306,124 @@ def prims_line(cs, label, dev) -> None:
     print(f"[prims] {label}: device time per call: " + "; ".join(parts), flush=True)
 
 
-def time_one(root: str) -> None:
+def kernel_ms(fn, iters, names) -> dict:
+    """Device ms per call of ``fn``'s kernels whose names hold one of
+    ``names``, kernel by kernel (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    short = re.compile(r"^.*?(\w+(?:<[^(]*>)?)\(.*$")
+    return {short.sub(r"\1", e.key): e.self_device_time_total / iters / 1e3
+            for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and any(n in e.key for n in names)}
+
+
+def slab_lines(cs, label, city, co, cd, dev) -> None:
+    """[slab]: K2·p1 at (c) and K3·pAB at (e), CUDA-event ms of the call
+    (and device time of K3·pAB's kernels), their SASS a test and issue
+    floors."""
+    import torch
+
+    from hikari_tpu_torch.config import DISTANCE_MAX
+    from hikari_tpu_torch.trace import api
+    from hikari_tpu_torch.trace import scatter as sc
+    from hikari_tpu_torch.trace import tile_walk as tw
+    from hikari_tpu_torch.trace import tiled as ttiled
+
+    R = co.shape[0]
+    maxd = torch.full((R,), DISTANCE_MAX, device=dev)
+    lo = torch.zeros((R,), dtype=torch.int32, device=dev)
+    hi = torch.full((R,), city.num_tris, dtype=torch.int32, device=dev)
+    # (c): the rays sorted into tiles as trace_rays sorts them.
+    cluster, _ = api.tile_cluster_rule(city.tri_n.shape[0])
+    order = api.ray_sort_order(city, co, cd)
+    oc, dc = co[order].contiguous(), cd[order].contiguous()
+    _, cmin, cmax, cvalid = tw.pack_clusters(city, cluster)
+    p1 = (cmin, cmax, cvalid, oc, ttiled.safe_inv_dir(dc), maxd, lo, hi)
+    p1_ms = cs.cuda_time_ms(lambda: ttiled.tile_cluster_entries(*p1, cluster=cluster), 20)
+    _, cmin_s, cmax_s, cvalid_s = tw.pack_clusters(city, sc.CLUSTER)
+    pab = (cmin_s, cmax_s, cvalid_s, co, cd, maxd, lo, hi)
+    pab_call = cs.cuda_time_ms(lambda: sc.scatter_plan(*pab), 10)
+    names = ("scatter_plan", "slab_table")
+    pab_dev = cs.device_ms(lambda: sc.scatter_plan(*pab), 10, names=names)
+    each = kernel_ms(lambda: sc.scatter_plan(*pab), 10, names)
+    tests_c, tests_e = R * cmin.shape[0], R * cmin_s.shape[0]
+    print(f"[slab] {label}: K2·p1 (c) {R} rays x {cmin.shape[0]} clusters: {p1_ms:.4f} ms; "
+          f"K3·pAB (e) {R} rays x {cmin_s.shape[0]} clusters: the call {pab_call:.4f} ms, its "
+          f"kernels {pab_dev:.4f} ms device (" + ", ".join(f"{k} {v:.4f}" for k, v in each.items())
+          + ")", flush=True)
+    # (d)/(f): the random rays of chip_smoke's cases, whose warps take the
+    # mixed-octant and ranged forms of the test.
+    _, phase1_d = cs.walk_case(city, *cs.city_random_rays(city, dev))
+    p1_d = cs.cuda_time_ms(lambda: ttiled.tile_cluster_entries(*phase1_d[:8],
+                                                                cluster=phase1_d[8]), 20)
+    o, d, maxd_f, _, _, lo_f, hi_f = cs.city_random_rays(city, dev)
+    pab_f = (cmin_s, cmax_s, cvalid_s, o, d, maxd_f, lo_f, hi_f)
+    f_call = cs.cuda_time_ms(lambda: sc.scatter_plan(*pab_f), 10)
+    f_dev = cs.device_ms(lambda: sc.scatter_plan(*pab_f), 10, names=names)
+    print(f"[slab] {label}: K2·p1 (d) {o.shape[0]} random rays x {cmin.shape[0]} clusters: "
+          f"{p1_d:.4f} ms; K3·pAB (f) the same rays x {cmin_s.shape[0]} clusters: the call "
+          f"{f_call:.4f} ms, its kernels {f_dev:.4f} ms device", flush=True)
+    out = os.environ.get("AB_SASS_DIR")
+    for name, mod, kernel, tests in (("K2·p1", ttiled, "tile_entries", tests_c),
+                                     ("K3·pAB", sc, "scatter_plan", tests_e)):
+        source = mod.SOURCE if mod is ttiled else mod.PLAN_SOURCE
+        sass = kernel_sass(source)
+        if out:
+            os.makedirs(out, exist_ok=True)
+            with open(os.path.join(out, f"{label}_{name.replace('·', '_')}.sass"), "w") as f:
+                f.write(sass)
+        n_ins, n_common, n_tests = slab_loop(sass, kernel)
+        ipt = n_common / max(n_tests, 1)
+        regs = "/".join(map(str, registers(source, kernel).values()))
+        print(f"[sass] {label} {name}: test loop {n_ins} instructions, {n_common} on its common "
+              f"path, for {n_tests} slab tests = {ipt:.2f} a test ({regs} registers); issue floor "
+              f"{tests} tests (one a pair) x {ipt:.2f} / {INSTRUCTION_RATE / 1e12:.1f} T/s = "
+              f"{issue_floor_ms(tests, ipt):.4f} ms", flush=True)
+
+
+def bench_lines(label, dev) -> None:
+    """[bench_trace]: the checkout's ``bench_trace.measure`` of the
+    pallas_tiled and scatter rows of city-551k and terrain-1m (the bench's
+    rays and budgets), each with its rate, the memory live before it and
+    its peak; for scatter also the bytes of the plan's ballot masks at the
+    row's shape (what this design adds over the parent's)."""
+    import torch
+
+    from hikari_tpu_torch import bench_trace as bt
+    from hikari_tpu_torch.scene import compile_scene, to_device
+    from hikari_tpu_torch.trace import scatter as sc
+
+    for name, stress in (("city-551k", False), ("terrain-1m", True)):
+        buffers = to_device(compile_scene(bt.build_scenes(stress=stress)[name]), dev)
+        o, d = bt.make_rays(buffers, 1 << 20, device=dev)
+        for method in ("pallas_tiled", "scatter"):
+            n = bt.ray_budget(method, buffers.num_tris, o.shape[0])
+            torch.cuda.synchronize()
+            live = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            m = bt.measure(buffers, o[:n], d[:n], method)
+            peak = torch.cuda.max_memory_allocated(dev)
+            clusters = -(-buffers.num_tris // sc.CLUSTER)
+            masks = (f"; ballot masks of {n} rays x ~{clusters} clusters "
+                     f"{-(-n // 32) * clusters * 4 / 2**30:.4f} GiB" if method == "scatter" else "")
+            print(f"[bench_trace] {label} {name}/{method}: {n} rays, {m['rays_per_s']:.6g} rays/s "
+                  f"({m['seconds'] * 1e3:.4f} ms a call, {m['trace_calls']} calls); memory live "
+                  f"before {live / 2**30:.4f} GiB, peak {peak / 2**30:.4f} GiB{masks}", flush=True)
+        del buffers, o, d
+        torch.cuda.empty_cache()
+
+
+def time_one(root: str, slab_only: bool = False) -> None:
     """Build and time the kernels of the checkout at ``root`` (this
-    process imports that checkout's package)."""
+    process imports that checkout's package); with ``slab_only`` only the
+    slab-test phases."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -269,6 +437,16 @@ def time_one(root: str) -> None:
 
     dev = torch.device("cuda", 0)
     label = os.path.basename(os.path.abspath(root))
+    if slab_only:
+        scene, city_cam, _ = city_config(device=dev)
+        city = to_device(compile_scene(scene), dev)
+        co, cd = city_cam.pixel_rays(cs.CITY_HW)
+        slab_lines(cs, label, city, co.reshape(-1, 3).contiguous(),
+                   cd.reshape(-1, 3).contiguous(), dev)
+        del city, co, cd
+        torch.cuda.empty_cache()
+        bench_lines(label, dev)
+        return
     ch.build()
     tw.build()
     sc.build()
@@ -370,21 +548,24 @@ def time_one(root: str) -> None:
           f"{longest * cs.PAIR_FLOPS / (cs.PEAK_FP32 / NUM_SMS) * 1e3:.4f} ms at 1/{NUM_SMS} of "
           f"the FP32 rate, {issue_floor_ms(longest, ipp['K2']) * NUM_SMS:.4f} ms at 1/{NUM_SMS} "
           f"of the issue rate", flush=True)
+    slab_lines(cs, label, city, co, cd, dev)
     prims_line(cs, label, dev)
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    slab = argv[:1] == ["--slab"]
+    argv = argv[1:] if slab else argv
     if argv[:1] == ["--one"]:
-        time_one(argv[1])
+        time_one(argv[1], slab)
         return 0
     env = dict(os.environ)
     if env.get("AB_SASS_DIR"):
         env["AB_SASS_DIR"] = os.path.abspath(env["AB_SASS_DIR"])
     for root in argv:
         root = os.path.abspath(root)
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root], check=True,
-                       cwd=root, env=env)
+        subprocess.run([sys.executable, os.path.abspath(__file__)] + ["--slab"] * slab
+                       + ["--one", root], check=True, cwd=root, env=env)
     return 0
 
 

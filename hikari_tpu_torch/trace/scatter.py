@@ -13,13 +13,15 @@ for incoherent large-scene rays — the port of ``hikari_tpu.trace.scatter``
    or past the capacity ``CAP = ceil(items_per_ray * R / 128) * 128 + 128
    * L`` are dropped, as the JAX package's ``mode="drop"`` scatter drops
    them. ``scatter_plan`` runs both: for CUDA tensors the hand-written
-   kernel ``csrc/scatter_plan.cu`` (a count launch per 512-ray chunk and
-   cluster, the scan over chunks and the block map in torch, a place
-   launch that slab-tests again and writes each pair at its chunk's base
-   plus its ballot rank, as the JAX package's two scans do, no sort); its
-   plain twin ``scatter_plan_reference`` (the entered pairs sorted by
-   cluster, then ray) only for CPU tensors. On a CUDA tensor
-   ``scatter_plan`` launches or raises; it never falls back;
+   kernel ``csrc/scatter_plan.cu`` (a count launch that slab-tests each
+   (ray, cluster) pair once and keeps per 512-ray chunk and cluster the
+   entered pairs and per warp of 32 rays and cluster the ballot of the
+   rays that enter, the scan over chunks and the block map in torch, a
+   place launch that writes each pair at its chunk's base plus its rank
+   in the ballots, as the JAX package's two scans do, no sort); its plain
+   twin ``scatter_plan_reference`` (the entered pairs sorted by cluster,
+   then ray) only for CPU tensors. On a CUDA tensor ``scatter_plan``
+   launches or raises; it never falls back;
 3. the kernel (``scatter_items``): each 128-item block tests its items
    against the 128 triangles of its one cluster — the hand-written CUDA
    kernel ``csrc/scatter_items.cu`` for CUDA tensors, its plain twin
@@ -81,8 +83,9 @@ F32_MAX_BITS = 0x7F7FFFFF  # float32 F32_MAX as int32 bits
 
 # Kernel launches made by ``scatter_items`` (one per call on CUDA tensors).
 launches = 0
-# Kernel launches made by ``scatter_plan`` (two per call on CUDA tensors:
-# its count launch and its place launch).
+# Kernel launches made by ``scatter_plan`` (three per call on CUDA
+# tensors: the staged table, the count launch and the place launch), as
+# the C calls report them.
 plan_launches = 0
 # Entered (ray, cluster) pairs that ``trace_scatter`` dropped past its
 # capacity, summed over calls.
@@ -206,8 +209,10 @@ def build_plan() -> float:
     start = time.perf_counter()
     lib, plan_build_log = build_library(PLAN_SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.hikari_scatter_plan.argtypes = [ptr] * 8 + [i32] * 3 + [ptr] * 2 + [i32, ptr, ptr]
-    lib.hikari_scatter_plan.restype = i32
+    lib.hikari_scatter_plan_count.argtypes = [ptr] * 8 + [i32] * 2 + [ptr] * 5
+    lib.hikari_scatter_plan_count.restype = i32
+    lib.hikari_scatter_plan_place.argtypes = [ptr] * 2 + [i32] * 3 + [ptr] * 3
+    lib.hikari_scatter_plan_place.restype = i32
     lib.hikari_scatter_plan_error_string.argtypes = [i32]
     lib.hikari_scatter_plan_error_string.restype = ctypes.c_char_p
     _plan_lib = lib
@@ -217,9 +222,11 @@ def build_plan() -> float:
 def scatter_plan(cmin, cmax, cvalid, o, d, maxd, lo, hi, items_per_ray: int = 32):
     """Phases A and B and the block map: (meta, items, dropped) as
     ``scatter_plan_reference`` with the same arguments. CPU tensors run the
-    twin; CUDA tensors launch the kernel ``csrc/scatter_plan.cu`` twice
-    (its count launch, then its place launch) or raise. One host read a
-    call: the dropped count."""
+    twin; CUDA tensors launch the kernels of ``csrc/scatter_plan.cu``
+    (the staged bound table, the count launch, which writes the counts and
+    the ballot masks, then the place launch) or raise. One
+    host read a call: the dropped count. The masks, (ceil(R/32), L) i32,
+    live until the call returns (``mask_bytes``)."""
     if o.device.type == "cpu":
         return scatter_plan_reference(cmin, cmax, cvalid, o, d, maxd, lo, hi, items_per_ray)
     if o.device.type != "cuda":
@@ -245,26 +252,37 @@ def scatter_plan(cmin, cmax, cvalid, o, d, maxd, lo, hi, items_per_ray: int = 32
     build_plan()
     inv = safe_inv_dir(d)
     nch = -(-R // PLAN_CHUNK)
+    table = torch.empty((L, 8), dtype=torch.float32, device=dev)
     counts = torch.empty((nch, L), dtype=torch.int32, device=dev)
+    masks = torch.empty((-(-R // 32), L), dtype=torch.int32, device=dev)
     items = torch.full((cap,), -1, dtype=torch.int64, device=dev)
 
-    def launch(count: int, base):
+    launched = ctypes.c_int(0)
+
+    def check(err):
         global plan_launches
-        err = _plan_lib.hikari_scatter_plan(
-            o.data_ptr(), inv.data_ptr(), maxd.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-            cmin.data_ptr(), cmax.data_ptr(), cvalid.data_ptr(), R, L, count, counts.data_ptr(),
-            base.data_ptr(), cap, items.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        )
+        plan_launches += launched.value
         if err:
             raise RuntimeError(f"scatter_plan kernel launch failed: "
                                f"{_plan_lib.hikari_scatter_plan_error_string(err).decode()}")
-        plan_launches += 1
 
     with torch.cuda.device(dev):
-        launch(1, counts)  # the count launch reads no base
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        check(_plan_lib.hikari_scatter_plan_count(
+            o.data_ptr(), inv.data_ptr(), maxd.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            cmin.data_ptr(), cmax.data_ptr(), cvalid.data_ptr(), R, L, table.data_ptr(),
+            counts.data_ptr(), masks.data_ptr(), stream, ctypes.byref(launched)))
         meta, base, _, dropped = plan_bases(counts, R, items_per_ray)
-        launch(0, base)
+        del counts
+        check(_plan_lib.hikari_scatter_plan_place(
+            masks.data_ptr(), base.data_ptr(), R, L, cap, items.data_ptr(), stream,
+            ctypes.byref(launched)))
     return meta, items, int(dropped)
+
+
+def mask_bytes(R: int, L: int) -> int:
+    """Bytes of the plan kernel's ballot masks for R rays over L clusters."""
+    return -(-R // 32) * L * 4
 
 
 def item_fields(items, o, d, maxd, excl, lo, hi):

@@ -42,8 +42,9 @@ TILE_R = 512  # rays per tile
 # twin (2^26 f32 = 256 MB).
 ENTRY_CHUNK_ELEMS = 1 << 26
 
-# Kernel launches made by ``tile_cluster_entries`` (one per call on CUDA
-# tensors).
+# Kernel launches made by ``tile_cluster_entries`` (two per call on CUDA
+# tensors: the staged table and the test kernel), as the C call reports
+# them.
 launches = 0
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "tile_entries.cu"
@@ -170,7 +171,7 @@ def build() -> float:
     start = time.perf_counter()
     lib, build_log = build_library(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.hikari_tile_entries.argtypes = [ptr] * 8 + [i32] * 4 + [ptr] * 3
+    lib.hikari_tile_entries.argtypes = [ptr] * 8 + [i32] * 3 + [ptr] * 5
     lib.hikari_tile_entries.restype = i32
     lib.hikari_tile_entries_error_string.argtypes = [i32]
     lib.hikari_tile_entries_error_string.restype = ctypes.c_char_p
@@ -183,7 +184,8 @@ def tile_cluster_entries(cmin, cmax, cvalid, o, inv_d, maxd, lo=None, hi=None,
     """Phase 1: (entries (T, L), ray_maxent (R,)), as
     ``tile_cluster_entries_reference`` with the same arguments. CPU
     tensors run the twin; CUDA tensors launch the kernel
-    ``csrc/tile_entries.cu`` (one launch per call) or raise."""
+    ``csrc/tile_entries.cu`` (two launches a call: the staged bound table,
+    then the tests) or raise."""
     global launches
     if o.device.type == "cpu":
         return tile_cluster_entries_reference(cmin, cmax, cvalid, o, inv_d, maxd, lo, hi, cluster)
@@ -217,18 +219,21 @@ def tile_cluster_entries(cmin, cmax, cvalid, o, inv_d, maxd, lo=None, hi=None,
     ray_maxent = torch.empty((R,), dtype=torch.float32, device=dev)
     if T == 0:
         return entries, ray_maxent
+    table = torch.empty((L, 8), dtype=torch.float32, device=dev)
+    launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib.hikari_tile_entries(
             o.data_ptr(), inv_d.data_ptr(), maxd.data_ptr(),
             lo.data_ptr() if have_range else None, hi.data_ptr() if have_range else None,
             cmin.data_ptr(), cmax.data_ptr(), cvalid.data_ptr(), T, L, cluster,
-            int(have_range), entries.data_ptr(), ray_maxent.data_ptr(), stream,
+            table.data_ptr(), entries.data_ptr(), ray_maxent.data_ptr(), stream,
+            ctypes.byref(launched),
         )
+    launches += launched.value
     if err:
         raise RuntimeError(f"tile_cluster_entries kernel launch failed: "
                            f"{_lib.hikari_tile_entries_error_string(err).decode()}")
-    launches += 1
     return entries, ray_maxent
 
 

@@ -4,15 +4,23 @@ hand-written kernels: phase 1 of the tile walk
 and phases A and B of the scatter tracer (``trace/scatter.scatter_plan``,
 kernel ``csrc/scatter_plan.cu``).
 
-On the CPU: a plain-torch restatement of the plan kernel's decomposition
-(per-chunk counts, the scan over chunks in ``scatter.plan_bases``, each
-pair's rank in its chunk as the kernel's warp ballots count it) equals the
-twin ``scatter_plan_reference`` bit for bit; rays whose origins lie on
-cluster faces and rays with NaN or infinite directions pin the twins'
-signed-zero and NaN results, which the kernels must match; the wrappers
-raise on a device that is neither the CPU nor CUDA and never run a twin
-there. The cuda-marked tests hold each kernel against its twin bit for bit
-on the card (every float compared by its bits).
+On the CPU: a plain-torch restatement of the kernels' slab test as they
+run it (``_kernel_test``: the staged table of ``csrc/slab_test.cuh``, each
+warp's choice of the test without NaN compares where its 32 rays are all
+clean and without range compares where they all take every cluster's
+range) equals the twins on rays and clusters chosen to break it; the plan
+kernel's decomposition in plain torch (a count launch that keeps per warp
+and cluster the ballot of the entered rays and per chunk the counts, the
+scan over chunks in ``scatter.plan_bases``, a place launch that ranks each
+pair from the masks alone) equals the twin ``scatter_plan_reference`` bit
+for bit; rays whose origins lie on cluster faces and rays with NaN or
+infinite directions pin the twins' signed-zero and NaN results, which the
+kernels must match; the wrappers raise on a device that is neither the
+CPU nor CUDA and never run a twin there. The cuda-marked tests hold each
+kernel against its twin bit for bit on the card (every float compared by
+its bits), also on warps that mix clean and NaN rays, on clusters with
+non-finite bounds and on cluster counts that are no multiple of the
+kernels' stage of 128 clusters.
 
 The scenes are the small cities of ``test_torch_tiled.py``
 (``city_scene(blocks=3, detail=True)``, 18,422 triangles) and
@@ -123,6 +131,32 @@ def _edge_rays(cmin, cmax, cvalid, n_face=256):
     return [torch.from_numpy(x) for x in (o, d, maxd, lo, hi)], groups, torch.from_numpy(c)
 
 
+def _hazard_case(arrays, tb, cluster, n=1500, seed=29):
+    """Clusters with non-finite bounds and warps that mix clean and unclean
+    rays, on the CPU: (cmin, cmax, cvalid, o, d, maxd, lo, hi). Cluster 3
+    has a NaN min x, 10 a min x of -inf, 11 a max y of +inf, 12 a min z of
+    +inf (above its max), 20 is invalid (clusters 0-4 where there are no
+    more than 20). Then the edge rays (warps of one
+    kind each) and seeded city rays with prim ranges, of which every 97th
+    has an infinite direction component, every 101st a NaN origin
+    component and every 103rd a NaN direction (warps of both kinds)."""
+    cmin, cmax, cvalid = ttiled.cluster_bounds(tb, cluster)
+    edge = _edge_rays(cmin, cmax, cvalid)[0]
+    cmin, cmax, cvalid = cmin.clone(), cmax.clone(), cvalid.clone()
+    c = (3, 10, 11, 12, 20) if cmin.shape[0] > 20 else tuple(range(5))
+    cmin[c[0], 0] = float("nan")
+    cmin[c[1], 0] = float("-inf")
+    cmax[c[2], 1] = float("inf")
+    cmin[c[3], 2] = float("inf")
+    cvalid[c[4]] = False
+    o, d, maxd, lo, hi = _rays(arrays, n, seed, True)
+    d[::97, 0] = float("inf")
+    o[::101, 1] = float("nan")
+    d[::103, 2] = float("nan")
+    rays = [torch.cat([x, y]) for x, y in zip(edge, (o, d, maxd, lo, hi))]
+    return (cmin, cmax, cvalid, *rays)
+
+
 def _pad_tiles(rays):
     """(o, d, maxd, lo, hi) padded to whole 512-ray tiles with inert rays."""
     R = rays[0].shape[0]
@@ -141,27 +175,131 @@ def _bits(x):
 # ---------------------------------------------------------------------------
 
 
-def _decomposed_plan(cmin, cmax, cvalid, o, d, maxd, lo, hi, items_per_ray, chunk):
-    """The plan kernel's decomposition in plain torch: the entered mask per
-    chunk of ``chunk`` rays (32-lane warps), its counts per (chunk,
-    cluster), ``scatter.plan_bases`` (the wrapper's step between the two
-    launches), then each pair at its chunk's base plus the entered rays
-    before it in the chunk: the lanes below in its warp (popc of the
-    ballot) plus the warps below."""
+STAGE = 128  # clusters a stage of the kernels' staged table (slab_test.cuh kStage)
+INT32_MIN, INT32_MAX = -2**31, 2**31 - 1
+
+
+def _slab_table(cmin, cmax, cvalid, cluster, range_dtype):
+    """The kernels' staged table (slab_test.cuh ``slab_table_kernel``) in
+    torch: (bounds (L, 6): each axis's min, then each axis's max, lo_c
+    (L,), hi_c (L,)). A cluster that is invalid or has a NaN bound stages
+    +inf bounds and an empty range (lo_c the range type's largest value,
+    hi_c its least)."""
+    L = cmin.shape[0]
+    bounds = torch.cat([torch.fmin(cmin, cmax), torch.fmax(cmin, cmax)], 1)
+    ok = cvalid & ~torch.cat([cmin, cmax], 1).isnan().any(1)
+    first = torch.arange(L, dtype=torch.int64) * cluster
+    if range_dtype == torch.float32:
+        big, least = float("inf"), float("-inf")
+    else:
+        big, least = INT32_MAX, INT32_MIN
+    lo_c = torch.where(ok, first.to(range_dtype), torch.tensor(big, dtype=range_dtype))
+    hi_c = torch.where(ok, (first + cluster).to(range_dtype), torch.tensor(least, dtype=range_dtype))
+    return torch.where(ok[:, None], bounds, float("inf")), lo_c, hi_c
+
+
+def _kernel_test(cmin, cmax, cvalid, o, inv, maxd, lo, hi, cluster, range_dtype, choose=True):
+    """The slab test as the kernels run it, in torch: (hit (R, L), entry
+    (R, L) f32, the rays' warp path (R,): 0 clean, full range and one
+    octant; 1 clean and full range; 2 clean; 3 with NaN compares). The
+    staged table; NaN-dropping min/max (fminf, fmaxf: torch.fmin,
+    torch.fmax); the entry as the signed-int max of tlo's bits and 0. Per
+    warp of 32 rays (the last one padded with rays that are clean, take
+    every range and enter nothing): the NaN compares unless every ray is
+    clean, the range compares unless, besides, every ray takes every
+    cluster's range, and the per-axis min and max unless, besides, every
+    ray has the signs of lane 0's inv (then the near and far bound of each
+    axis by the sign). ``lo``/``hi`` are the ray ranges in ``range_dtype``
+    (f32 for phase 1, int32 for phase A). With ``choose`` False every warp
+    takes the test without NaN and range compares, which is right only
+    where the choice would have taken it."""
     R, L = o.shape[0], cmin.shape[0]
-    nch = -(-R // chunk)
-    mask = torch.zeros((nch * chunk, L), dtype=torch.bool)
-    mask[:R] = tsc._chunk_mask(cmin, cmax, cvalid, o, ttiled.safe_inv_dir(d), maxd, lo, hi)
-    mask = mask.reshape(nch, chunk // 32, 32, L)
-    counts = mask.sum(dim=(1, 2), dtype=torch.int32)
+    bounds, lo_c, hi_c = _slab_table(cmin, cmax, cvalid, cluster, range_dtype)
+    pad = -(-R // 32) * 32 - R
+    if range_dtype == torch.float32:
+        dead_lo, dead_hi = float("-inf"), float("inf")
+    else:
+        dead_lo, dead_hi = INT32_MIN, INT32_MAX
+    o = torch.cat([o, torch.zeros((pad, 3))])
+    inv = torch.cat([inv, torch.ones((pad, 3))])
+    maxd = torch.cat([maxd, torch.full((pad,), float("-inf"))])
+    lo = torch.cat([lo, torch.full((pad,), dead_lo, dtype=range_dtype)])
+    hi = torch.cat([hi, torch.full((pad,), dead_hi, dtype=range_dtype)])
+    a = (bounds[None, :, :3] - o[:, None]) * inv[:, None]  # (R, L, 3)
+    b = (bounds[None, :, 3:] - o[:, None]) * inv[:, None]
+    nan = (a.isnan() | b.isnan()).any(-1)
+    clean = torch.isfinite(o).all(1) & torch.isfinite(inv).all(1) & (inv != 0).all(1)
+    full = (lo < torch.tensor(cluster).to(range_dtype)) & (
+        hi > torch.tensor((L - 1) * cluster).to(range_dtype))
+    sign = inv < 0
+    warp_clean = clean.reshape(-1, 32).all(1).repeat_interleave(32)
+    warp_full = full.reshape(-1, 32).all(1).repeat_interleave(32)
+    warp_oct = (sign.reshape(-1, 32, 3) == sign.reshape(-1, 32, 3)[:, :1]).all(2).all(1)
+    warp_oct = warp_oct.repeat_interleave(32)
+    if not choose:
+        warp_clean = warp_full = torch.ones_like(clean)
+    skip_range = warp_clean & warp_full
+    octant = skip_range & warp_oct
+    lo3, hi3 = torch.fmin(a, b), torch.fmax(a, b)
+    near = torch.where(sign[:, None], b, a)  # inv < 0: the max bound is near
+    far = torch.where(sign[:, None], a, b)
+    lo3 = torch.where(octant[:, None, None], near, lo3)
+    hi3 = torch.where(octant[:, None, None], far, hi3)
+    tlo = torch.fmax(torch.fmax(lo3[..., 0], lo3[..., 1]), lo3[..., 2])
+    thi = torch.fmin(torch.fmin(hi3[..., 0], hi3[..., 1]), hi3[..., 2])
+    entry = torch.clamp(tlo.contiguous().view(torch.int32), min=0).view(torch.float32)
+    hit = (thi >= entry) & (entry < maxd[:, None])
+    in_range = (lo_c[None] < hi[:, None]) & (hi_c[None] > lo[:, None])
+    hit = hit & (~nan | warp_clean[:, None]) & (in_range | skip_range[:, None])
+    path = torch.where(octant, 0, torch.where(skip_range, 1, torch.where(warp_clean, 2, 3)))
+    return hit[:R], entry[:R], path[:R]
+
+
+def _kernel_entries(cmin, cmax, cvalid, o, inv, maxd, lo=None, hi=None, cluster=0, choose=True):
+    """Phase 1 as its kernel runs it (``_kernel_test`` in f32): (entries
+    (T, L), ray_maxent (R,), the warp paths (R,))."""
+    R = o.shape[0]
+    if lo is None:
+        lo, hi = torch.full((R,), float("-inf")), torch.full((R,), float("inf"))
+    else:
+        lo, hi = lo.to(torch.float32), hi.to(torch.float32)
+    hit, entry, path = _kernel_test(cmin, cmax, cvalid, o, inv, maxd, lo, hi, cluster,
+                                    torch.float32, choose)
+    entries = torch.where(hit, entry, F32_MAX).reshape(R // ttiled.TILE_R, ttiled.TILE_R, -1)
+    return entries.amin(dim=1), torch.where(hit, entry, -1.0).amax(dim=1), path
+
+
+def _decomposed_plan(cmin, cmax, cvalid, o, d, maxd, lo, hi, items_per_ray, chunk):
+    """The plan kernel's decomposition in plain torch. The count launch:
+    the kernels' slab test (``_kernel_test``, int ranges) once a (ray,
+    cluster) pair, kept as each 32-ray warp's ballot of each cluster, masks
+    (ceil(R/32), L) as u32 values, and per chunk of ``chunk`` rays and
+    cluster the entered pairs (the masks' popcounts). ``scatter.plan_bases``
+    (the wrapper's step between the two launches). The place launch, from
+    the masks alone: each pair at its chunk's base plus the popcounts of
+    the warps below in the chunk plus the bits below in its own mask."""
+    R, L = o.shape[0], cmin.shape[0]
+    hit = _kernel_test(cmin, cmax, cvalid, o, ttiled.safe_inv_dir(d), maxd, lo, hi, tsc.CLUSTER,
+                       torch.int32)[0]
+    nw, nch = -(-R // 32), -(-R // chunk)
+    lane = torch.arange(32, dtype=torch.int64)
+    bits = torch.zeros((nw * 32, L), dtype=torch.int64)
+    bits[:R] = hit.to(torch.int64)
+    masks = (bits.reshape(nw, 32, L) << lane[None, :, None]).sum(dim=1)  # (nw, L) u32 values
+    # Everything below reads only the masks.
+    wpc = chunk // 32
+    rows = torch.zeros((nch * wpc, L), dtype=torch.int64)
+    rows[:nw] = masks
+    bit = (rows[:, None, :] >> lane[None, :, None]) & 1  # (rows, 32, L)
+    pop = bit.sum(dim=1).reshape(nch, wpc, L)
+    counts = pop.sum(dim=1).to(torch.int32)
     meta, base, cap, dropped = tsc.plan_bases(counts, R, items_per_ray)
-    m = mask.to(torch.int64)
-    lanes_below = torch.cumsum(m, dim=2) - m
-    warp_total = m.sum(dim=2, keepdim=True)
-    warps_below = torch.cumsum(warp_total, dim=1) - warp_total
-    slot = base.to(torch.int64)[:, None, None, :] + warps_below + lanes_below
-    ray = torch.arange(nch * chunk).reshape(nch, chunk // 32, 32, 1).expand_as(slot)
-    keep = mask & (slot < cap)
+    bit = bit.reshape(nch, wpc, 32, L)
+    below_in_mask = torch.cumsum(bit, dim=2) - bit
+    warps_below = (torch.cumsum(pop, dim=1) - pop)[:, :, None, :]
+    slot = base.to(torch.int64)[:, None, None, :] + warps_below + below_in_mask
+    ray = torch.arange(nch * chunk).reshape(nch, wpc, 32, 1).expand_as(slot)
+    keep = (bit == 1) & (slot < cap)
     items = torch.full((cap,), -1, dtype=torch.int64)
     items[slot[keep]] = ray[keep]
     return meta, items, int(dropped)
@@ -190,6 +328,49 @@ def test_plan_decomposition_equals_twin(cities, scene_name, chunk, items_per_ray
     # The wrapper on CPU tensors is the twin.
     plain = tsc.scatter_plan(cmin, cmax, cvalid, o, d, maxd, lo, hi, items_per_ray)
     assert all(torch.equal(a, b) for a, b in zip(plain[:2], want[:2])) and plain[2] == want[2]
+
+
+@pytest.mark.parametrize("scene_name", ["blocks3_detail", "blocks4"])
+@pytest.mark.parametrize("phase", ["entries", "plan"])
+def test_kernel_test_equals_twins_on_hazards(cities, phase, scene_name):
+    """The kernels' slab test (``_kernel_test``) against the twins on
+    clusters with non-finite bounds and warps that mix clean and unclean
+    rays: the entered pairs (phase A, int ranges) or the entries and max
+    entries bit for bit, with and without prim ranges (phase 1, f32
+    ranges). All four warp paths run. Without the choice of path (every
+    warp testing without NaN and range compares) some pair differs from
+    the twin: the clean-ray predicate is what keeps the short test
+    exact. The small city has 288 / 144 clusters (no multiple of the
+    kernels' stage of 128), the 4-block one 16 / 8 (less than a stage)."""
+    arrays, tb = cities[scene_name]
+    cluster = PHASE1_CLUSTER if phase == "entries" else tsc.CLUSTER
+    cmin, cmax, cvalid, o, d, maxd, lo, hi = _hazard_case(arrays, tb, cluster)
+    assert cmin.shape[0] % STAGE
+    if phase == "plan":
+        inv = ttiled.safe_inv_dir(d)
+        want = tsc._chunk_mask(cmin, cmax, cvalid, o, inv, maxd, lo, hi)
+        got, _, path = _kernel_test(cmin, cmax, cvalid, o, inv, maxd, lo, hi, cluster, torch.int32)
+        assert torch.equal(got, want)
+        assert want.sum() > o.shape[0]
+        short = _kernel_test(cmin, cmax, cvalid, o, inv, maxd, lo, hi, cluster, torch.int32,
+                             choose=False)[0]
+        assert not torch.equal(short, want)
+    else:
+        o, d, maxd, lo, hi = _pad_tiles([o, d, maxd, lo, hi])
+        inv = ttiled.safe_inv_dir(d)
+        differs = False
+        for rng in ((lo, hi), (None, None)):
+            want = ttiled.tile_cluster_entries_reference(cmin, cmax, cvalid, o, inv, maxd, *rng,
+                                                         cluster=cluster)
+            got = _kernel_entries(cmin, cmax, cvalid, o, inv, maxd, *rng, cluster=cluster)
+            assert same_bits(got[0], want[0]) and same_bits(got[1], want[1])
+            short = _kernel_entries(cmin, cmax, cvalid, o, inv, maxd, *rng, cluster=cluster,
+                                    choose=False)
+            differs |= not (same_bits(short[0], want[0]) and same_bits(short[1], want[1]))
+            if rng[0] is not None:
+                path = got[2]
+        assert differs
+    assert set(path.tolist()) == {0, 1, 2, 3}
 
 
 def test_plan_bases_clamps_and_counts_drops():
@@ -321,13 +502,20 @@ def _entries_cases(arrays, tb):
         edge = _edge_rays(cmin, cmax, cvalid)[0]
         cases.append((f"edge rays, cluster {cluster}", cmin, cmax, cvalid, *_pad_tiles(edge),
                       cluster))
+        hz = _hazard_case(arrays, tb, cluster, n=20000)
+        cases.append((f"mixed warps, non-finite bounds, cluster {cluster}", *hz[:3],
+                      *_pad_tiles(hz[3:]), cluster))
     return cases
 
 
 @pytest.mark.cuda
 def test_tile_entries_kernel_matches_twin_on_card(cities, cuda_device):
     """Entries and max entries bit for bit, with and without the prim
-    range, and the stable sort of the entries equal; one launch a call."""
+    range, and the stable sort of the entries equal; two launches a call
+    (the staged table, the tests).
+    The cases include warps that mix clean and NaN rays and clusters with
+    non-finite bounds (``_hazard_case``); 288 and 72 clusters, neither a
+    multiple of the kernel's stage of 128."""
     arrays, tb = cities["blocks3_detail"]
     for label, cmin, cmax, cvalid, o, d, maxd, lo, hi, cluster in _entries_cases(arrays, tb):
         inv = ttiled.safe_inv_dir(d)
@@ -340,7 +528,7 @@ def test_tile_entries_kernel_matches_twin_on_card(cities, cuda_device):
             before = ttiled.launches
             got = ttiled.tile_cluster_entries(*dev_args, cluster=cluster)
             torch.cuda.synchronize()
-            assert ttiled.launches == before + 1
+            assert ttiled.launches == before + 2
             for g, w in zip(got, want):
                 assert same_bits(g.cpu(), w), (label, ranged)
             assert torch.equal(torch.sort(got[0], dim=1, stable=True)[1].cpu(),
@@ -350,22 +538,30 @@ def test_tile_entries_kernel_matches_twin_on_card(cities, cuda_device):
 @pytest.mark.cuda
 def test_scatter_plan_kernel_matches_twin_on_card(cities, cuda_device):
     """meta, items and the dropped count bit for bit: city rays with and
-    without prim ranges, a ragged last chunk, drops (items_per_ray=2) and
-    the edge rays; one plan a call, and ``trace_rays(method="scatter")``
-    and ``method="pallas_tiled"`` go through the phase kernels."""
+    without prim ranges, a ragged last chunk, drops (items_per_ray=2), the
+    edge rays, and warps that mix clean and NaN rays over clusters with
+    non-finite bounds; 144 and 8 clusters (no multiple of the kernel's
+    stage of 128); one plan (three launches: table, count, place) a call, and
+    ``trace_rays(method="scatter")`` and ``method="pallas_tiled"`` go
+    through the phase kernels."""
     for name in ("blocks3_detail", "blocks4"):
         arrays, tb = cities[name]
         _, cmin, cmax, cvalid = tw.pack_clusters(tb, tsc.CLUSTER)
         cases = [(f"{name} ranged={r} ipr={ipr}", _rays(arrays, 65536 - 300, 43, r), ipr)
                  for r in (False, True) for ipr in (32, 2)]
         cases.append((f"{name} edge rays", _edge_rays(cmin, cmax, cvalid)[0], 32))
+        bounds = (cmin, cmax, cvalid)
+        if name == "blocks3_detail":
+            hz = _hazard_case(arrays, tb, tsc.CLUSTER, n=40000)
+            cases.append((f"{name} mixed warps, non-finite bounds", hz, 32))
         for label, rays, ipr in cases:
-            want = tsc.scatter_plan(cmin, cmax, cvalid, *rays, ipr)
-            dev_args = [x.to(cuda_device) for x in (cmin, cmax, cvalid, *rays)]
+            c_args, rays = (rays[:3], rays[3:]) if len(rays) == 8 else (bounds, rays)
+            want = tsc.scatter_plan(*c_args, *rays, ipr)
+            dev_args = [x.to(cuda_device) for x in (*c_args, *rays)]
             before = tsc.plan_launches
             got = tsc.scatter_plan(*dev_args, items_per_ray=ipr)
             torch.cuda.synchronize()
-            assert tsc.plan_launches == before + 2
+            assert tsc.plan_launches == before + 3
             assert torch.equal(got[0].cpu(), want[0]), label
             assert torch.equal(got[1].cpu(), want[1]), label
             assert got[2] == want[2], label
@@ -376,4 +572,4 @@ def test_scatter_plan_kernel_matches_twin_on_card(cities, cuda_device):
     before = (ttiled.launches, tsc.plan_launches)
     tapi.trace_rays(tb_dev, o, d, method="scatter")
     tapi.trace_rays(tb_dev, o, d, method="pallas_tiled")
-    assert (ttiled.launches, tsc.plan_launches) == (before[0] + 1, before[1] + 2)
+    assert (ttiled.launches, tsc.plan_launches) == (before[0] + 2, before[1] + 3)
