@@ -1,0 +1,7 @@
+"""Kernels launched per frame under `pass:emissive_spatial` and `pass:indirect_spatial`, their searches included (host / dispatch): moves gpu_frame_ms (fewer, fused launches)."""
+
+from hikari_bench import spans
+
+
+def read(ctx):
+    return spans.group_launches(ctx.trace, "spatial")

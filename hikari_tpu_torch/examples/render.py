@@ -10,11 +10,16 @@ It runs on the CUDA card; ``--cpu`` runs the plain twins on the CPU.
 examples/city.rs:23 loads models over time: the first instance is active
 from the start, the others are switched on in batches, one batch a frame,
 through ``scene.update_activity`` (a device-side refit, no recompile).
+``--trace DIR`` writes a ``torch.profiler`` Chrome trace of the frames to
+``DIR/trace.json``: each frame is the range ``render_frame``, each pass a
+``pass:<name>`` range, each search a ``trace_rays`` range and each host
+sync a ``host_sync:<site>`` range.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 
 import numpy as np
 import torch
@@ -59,7 +64,7 @@ def render(name: str, frames: int, size: int, device, assets=None, stream: bool 
     activity mask of each frame)."""
     from hikari_tpu_torch.render import initial_state, render_frame
     from hikari_tpu_torch.scene import build_scene_buffers, update_activity
-    from hikari_tpu_torch.utils.profiling import FrameTimer, pass_scope
+    from hikari_tpu_torch.utils.profiling import FrameTimer
 
     scene, cam, settings = make_config(name, size, device, assets)
     buffers = build_scene_buffers(scene, device)
@@ -75,7 +80,7 @@ def render(name: str, frames: int, size: int, device, assets=None, stream: bool 
     active = buffers.inst_active.cpu().numpy()
     with torch.no_grad():
         for mask in masks:
-            with timer.time(True), pass_scope("render_frame"):
+            with timer.time(True):
                 if not np.array_equal(mask, active):
                     buffers = update_activity(buffers, mask)
                     active = mask
@@ -99,6 +104,8 @@ def main(argv=None) -> dict:
     last RenderOutputs, "masks": each frame's instance activity}."""
     ap = parse(argv, __doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="write a torch.profiler Chrome trace of the frames to DIR/trace.json")
     ap.add_argument(
         "--stream", action="store_true",
         help="city.rs-style model streaming: start with most instances inactive and "
@@ -107,13 +114,18 @@ def main(argv=None) -> dict:
     )
     args = ap.parse_args(argv)
     from hikari_tpu_torch.io.image import write_png
-    from hikari_tpu_torch.utils import resolve_device
+    from hikari_tpu_torch.utils import profiling, resolve_device
 
     device = torch.device("cpu") if args.cpu else resolve_device()
-    out, _, timer, masks = render(args.config, args.frames, args.size, device, args.assets,
-                                  args.stream)
+    syncs = profiling.host_syncs
+    with profiling.trace_to(args.trace) if args.trace else contextlib.nullcontext():
+        out, _, timer, masks = render(args.config, args.frames, args.size, device, args.assets,
+                                      args.stream)
     seconds = sum(timer.samples)
-    print(f"{args.frames} frames in {seconds:.2f}s ({args.frames / seconds:.1f} fps) on {device}")
+    print(f"{args.frames} frames in {seconds:.2f}s ({args.frames / seconds:.1f} fps) on {device}, "
+          f"{(profiling.host_syncs - syncs) / args.frames:g} host syncs a frame")
+    if args.trace:
+        print(f"wrote {args.trace}/trace.json")
     path = args.out or f"{args.config}_{args.size}.png"
     img = out.image[..., :3].cpu().numpy()
     write_png(path, img)

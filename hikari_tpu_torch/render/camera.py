@@ -13,6 +13,7 @@ import torch
 
 from hikari_tpu_torch.utils import basis_apply, dot3_ordered, resolve_device
 from hikari_tpu_torch.utils.block import current
+from hikari_tpu_torch.utils.profiling import host_read
 
 
 def look_at_transform(eye, target, up=(0.0, 1.0, 0.0)) -> np.ndarray:
@@ -92,7 +93,7 @@ class Camera:
     def projection(self, size_hw) -> torch.Tensor:
         h, w = size_hw
         m = perspective_infinite_reverse(self.fov_y, w / h, self.near)
-        return torch.from_numpy(m).to(self.device)
+        return host_read("camera_projection", lambda: torch.from_numpy(m).to(self.device))
 
     def view_proj(self, size_hw, previous: bool = False) -> torch.Tensor:
         """Clip-from-world matrix (Bevy ``view.view_proj``)."""

@@ -66,6 +66,7 @@ from hikari_tpu_torch.utils import (
     safe_normalize,
 )
 from hikari_tpu_torch.utils.block import current
+from hikari_tpu_torch.utils.profiling import host_read
 
 # ---------------------------------------------------------------------------
 # G-buffer fetch at render resolution (reference jittered_deferred_*
@@ -80,7 +81,9 @@ def _frame_sign(frame_number: int, amount: float) -> float:
 def jittered_deferred_uv(uv, frame_number: int, deferred_size, upscale_ratio, amount=0.25):
     h, w = deferred_size
     sign = _frame_sign(frame_number, amount)
-    texel = torch.tensor([1.0 / w, 1.0 / h], dtype=torch.float32, device=uv.device)
+    dev = uv.device
+    texel = host_read("deferred_texel",
+                      lambda: torch.tensor([1.0 / w, 1.0 / h], dtype=torch.float32, device=dev))
     return uv + sign * texel * (upscale_ratio - 1.0)
 
 

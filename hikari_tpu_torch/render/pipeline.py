@@ -9,6 +9,14 @@ the NaN -> albedo fallback) (reference render graph PREPASS -> LIGHT ->
 POST_PROCESS -> OVERLAY, src/lib.rs:332-365). ``settings.stop_after``
 cuts the frame after a stage (``render/stops.py``).
 
+Under ``torch.profiler`` the frame is the range ``render_frame``, and each
+pass that runs is one range ``pass:<name>`` inside it, in frame order:
+``unpack`` (the f16 reservoirs), ``prepass``, ``albedo``, ``direct_lit``,
+``emissive_lit``, ``emissive_spatial``, ``indirect_lit``,
+``indirect_spatial``, ``denoise``, ``tonemap``, ``smaa``, ``taa``,
+``fsr``, ``overlay`` and ``pack`` (the reservoirs, the next state and the
+stats). Every launch of a whole frame falls under exactly one of them.
+
 Under a sharded frame (``parallel/sharding.make_sharded_render``) every
 pass runs on the rank's block of the image (``utils.block``). The post
 chain's passes (SMAA TU4x, TAA, FSR1, bloom, FXAA) read neighbourhoods,
@@ -51,6 +59,7 @@ from hikari_tpu_torch.trace.api import remat
 from hikari_tpu_torch.utils import luminance, map_tensors, resolve_device, uv_grid
 from hikari_tpu_torch.utils.block import WHOLE
 from hikari_tpu_torch.utils.block import current as current_block
+from hikari_tpu_torch.utils.profiling import pass_scope
 
 _RESERVOIRS = (
     "direct_temporal",
@@ -99,23 +108,28 @@ def _albedo_at_render_res(albedo, settings: RenderSettings, frame_number: int):
     return deferred_planes((albedo,), settings, frame_number)[0]
 
 
-def _denoise3(direct, direct_var, em, em_var, ind, ind_var, albedo_rr, gbuffer,
+def _denoise3(direct, direct_var, em, em_var, ind, ind_var, albedo, gbuffer,
               frame_number: int, settings: RenderSettings, denoise_fn=denoise_channel):
     """The three lighting channels through one denoiser each."""
+    albedo_rr = _albedo_at_render_res(albedo, settings, frame_number)
     return tuple(
         denoise_fn(rad, var, albedo_rr, gbuffer, frame_number, settings)
         for rad, var in ((direct, direct_var), (em, em_var), (ind, ind_var))
     )
 
 
-def _gathered_gbuffer(gb: GBuffer) -> GBuffer:
-    """The whole G-buffer from a sharded frame's blocks, with the planes
-    SMAA TU4x and TAA read (position, velocity/uv, instance); the others
-    are None."""
+def _post_gbuffers(gbuffer: GBuffer, prev_gbuffer: GBuffer):
+    """(this frame's, the previous frame's) G-buffer as SMAA TU4x and TAA
+    read them, whole: under a sharded frame gathered from the blocks, with
+    the planes they read (position, velocity/uv, instance) and the others
+    None."""
     blk = current_block()
-    return GBuffer(position=blk.gather(gb.position), normal=None, depth_gradient=None,
-                   instance=blk.gather(gb.instance), material=None,
-                   velocity_uv=blk.gather(gb.velocity_uv))
+    if not blk.sharded:
+        return gbuffer, prev_gbuffer
+    return tuple(GBuffer(position=blk.gather(gb.position), normal=None, depth_gradient=None,
+                         instance=blk.gather(gb.instance), material=None,
+                         velocity_uv=blk.gather(gb.velocity_uv))
+                 for gb in (gbuffer, prev_gbuffer))
 
 
 def _firewall(out, name):
@@ -131,10 +145,11 @@ def _pass(settings: RenderSettings, name, fn, *args, **kwargs):
     ``settings.remat`` and grad enabled the pass is rematerialized
     (``trace.api.remat``: JAX ``pipeline.py`` ``ckpt``): its backward runs
     it again, on the same arguments, instead of keeping its intermediates,
-    and replays its hits."""
-    if settings.remat and torch.is_grad_enabled():
-        return _firewall(remat(functools.partial(fn, **kwargs), *args), name)
-    return _firewall(fn(*args, **kwargs), name)
+    and replays its hits. It runs under the profiler range ``pass:<name>``."""
+    with pass_scope(f"pass:{name}"):
+        if settings.remat and torch.is_grad_enabled():
+            return _firewall(remat(functools.partial(fn, **kwargs), *args), name)
+        return _firewall(fn(*args, **kwargs), name)
 
 
 def _truncated(state_in: FrameState, device, *trees):
@@ -169,7 +184,13 @@ def render_frame(
     ``denoise_fn``: a channel denoiser with the signature of
     ``render/denoise.denoise_channel`` to run instead of it (JAX
     ``render_frame``'s): the sharded frame's halo-exchange denoiser,
-    ``parallel/halo.denoise_channel_sharded``."""
+    ``parallel/halo.denoise_channel_sharded``. The frame runs under the
+    profiler range ``render_frame``."""
+    with pass_scope("render_frame"):
+        return _frame(scene, camera, state, settings, noise_bank, denoise_fn)
+
+
+def _frame(scene, camera, state, settings, noise_bank, denoise_fn):
     check_supported(settings)
     dev = scene.device
     blk = current_block()
@@ -183,7 +204,9 @@ def render_frame(
         return _truncated(state_in, dev, *trees)
 
     if settings.reservoir_f16:
-        state = state.replace(**{k: decompress_reservoir(getattr(state, k)) for k in _RESERVOIRS})
+        with pass_scope("pass:unpack"):
+            state = state.replace(
+                **{k: decompress_reservoir(getattr(state, k)) for k in _RESERVOIRS})
 
     gbuffer = _pass(settings, "prepass", render_gbuffer, scene, camera, frame_number, settings)
     if stop == "gbuffer" or stop.startswith("gbuffer:"):
@@ -254,26 +277,27 @@ def render_frame(
         # remat.
         direct_d, em_d, ind_d = _pass(
             settings, "denoise", _denoise3, direct_out, direct_var, em_out, em_var, ind_out,
-            ind_var, _albedo_at_render_res(albedo, settings, frame_number), gbuffer,
-            frame_number, settings, denoise_fn=denoise_fn or denoise_channel,
+            ind_var, albedo, gbuffer, frame_number, settings,
+            denoise_fn=denoise_fn or denoise_channel,
         )
     else:
         direct_d, em_d, ind_d = direct_out, em_out, ind_out
     if stop == "denoise":
         return cut(gbuffer, albedo, direct_d, em_d, ind_d)
 
-    fg = (~bg).to(torch.float32)[..., None]
-
-    def with_alpha(rgb):
-        return torch.cat([rgb, fg], dim=-1)
-
     # Post-chain gradient firewalls after tone mapping, SMAA and TAA, as in
     # the JAX pipeline.
-    tonemapped = tone_mapping(
-        with_alpha(direct_d), with_alpha(em_d) * fg, with_alpha(ind_d) * fg,
-        settings.clear_color,
-    )
-    tonemapped = clip_gradient(tonemapped, 1e4, "tonemap")
+    with pass_scope("pass:tonemap"):
+        fg = (~bg).to(torch.float32)[..., None]
+
+        def with_alpha(rgb):
+            return torch.cat([rgb, fg], dim=-1)
+
+        tonemapped = tone_mapping(
+            with_alpha(direct_d), with_alpha(em_d) * fg, with_alpha(ind_d) * fg,
+            settings.clear_color,
+        )
+        tonemapped = clip_gradient(tonemapped, 1e4, "tonemap")
     if stop == "tonemap":
         return cut(gbuffer, albedo, tonemapped)
 
@@ -281,100 +305,107 @@ def render_frame(
     prev_upscaled = state.prev_upscaled
     smaa = settings.upscale.mode == UpscaleMode.SMAA_TU4X
     taa = settings.taa == Taa.JASMINE
-    if (smaa or taa) and blk.sharded:
-        gb_all, prev_gb_all = _gathered_gbuffer(gbuffer), _gathered_gbuffer(state.prev_gbuffer)
-    else:
-        gb_all, prev_gb_all = gbuffer, state.prev_gbuffer
+    post_gbuffers = None  # gathered by the first of SMAA and TAA that runs
     if smaa:
-        if not float(settings.upscale_ratio).is_integer():
-            h, w = settings.output_size
-            frh, frw = settings.render_size
-            raise _mirrored_fault(
-                f"SMAA TU4x at ratio {settings.upscale_ratio}", "hikari_tpu/render/smaa.py:162",
-                f"TypeError: incompatible shapes for broadcasting: ({frh}, {frw}), "
-                f"({h // 2}, {w // 2})",
-            )
-        current = blk.take(smaa_tu4x(
-            blk.gather(current), blk.gather(state.prev_upscaled), gb_all, prev_gb_all,
-            frame_number, stop=stop.split(":", 1)[1] if stop.startswith("smaa:") else None,
-        ))
-        current = clip_gradient(current, 1e4, "smaa")
-        prev_upscaled = current
+        with pass_scope("pass:smaa"):
+            if not float(settings.upscale_ratio).is_integer():
+                h, w = settings.output_size
+                frh, frw = settings.render_size
+                raise _mirrored_fault(
+                    f"SMAA TU4x at ratio {settings.upscale_ratio}",
+                    "hikari_tpu/render/smaa.py:162",
+                    f"TypeError: incompatible shapes for broadcasting: ({frh}, {frw}), "
+                    f"({h // 2}, {w // 2})",
+                )
+            post_gbuffers = _post_gbuffers(gbuffer, state.prev_gbuffer)
+            current = blk.take(smaa_tu4x(
+                blk.gather(current), blk.gather(state.prev_upscaled), *post_gbuffers,
+                frame_number, stop=stop.split(":", 1)[1] if stop.startswith("smaa:") else None,
+            ))
+            current = clip_gradient(current, 1e4, "smaa")
+            prev_upscaled = current
     if stop == "smaa" or stop.startswith("smaa:"):
         return cut(gbuffer, albedo, current)
 
     prev_taa = state.prev_taa
     if taa:
-        if settings.upscale.mode == UpscaleMode.FSR1:
-            frh, frw = settings.render_size
-            raise _mirrored_fault(
-                "FSR1 under TAA Jasmine", "hikari_tpu/render/taa.py:402, _taa_consume",
-                f"TypeError: incompatible shapes for broadcasting: ({frh}, {frw}), "
-                f"{settings.output_size}: TAA runs at the render size, its previous-depth "
-                f"taps at the G-buffer's",
-            )
-        current = blk.take(taa_jasmine(blk.gather(current), blk.gather(state.prev_taa), gb_all,
-                                       prev_gb_all, settings.clear_color,
-                                       settings.upscale_ratio))
-        current = clip_gradient(current, 1e4, "taa")
-        prev_taa = current
+        with pass_scope("pass:taa"):
+            if settings.upscale.mode == UpscaleMode.FSR1:
+                frh, frw = settings.render_size
+                raise _mirrored_fault(
+                    "FSR1 under TAA Jasmine", "hikari_tpu/render/taa.py:402, _taa_consume",
+                    f"TypeError: incompatible shapes for broadcasting: ({frh}, {frw}), "
+                    f"{settings.output_size}: TAA runs at the render size, its previous-depth "
+                    f"taps at the G-buffer's",
+                )
+            post_gbuffers = post_gbuffers or _post_gbuffers(gbuffer, state.prev_gbuffer)
+            current = blk.take(taa_jasmine(blk.gather(current), blk.gather(state.prev_taa),
+                                           *post_gbuffers, settings.clear_color,
+                                           settings.upscale_ratio))
+            current = clip_gradient(current, 1e4, "taa")
+            prev_taa = current
     if stop == "taa":
         return cut(gbuffer, albedo, current)
 
     if settings.upscale.mode == UpscaleMode.FSR1:
-        current = blk.take(fsr_upscale(blk.gather(current), settings.output_size,
-                                       settings.upscale.sharpness))
+        with pass_scope("pass:fsr"):
+            current = blk.take(fsr_upscale(blk.gather(current), settings.output_size,
+                                           settings.upscale.sharpness))
 
     # ---- OVERLAY: HDR inverse Reinhard (src/shaders/overlay.wgsl:27-46),
     # the chained bloom and FXAA (src/lib.rs:332-365), and the NaN ->
     # albedo fallback (overlay.wgsl:42) ----
-    image = current
-    if settings.hdr:
-        image = torch.cat([inverse_reinhard_luminance(image[..., :3]), image[..., 3:4]], dim=-1)
-    if settings.bloom:
-        image = blk.take(bloom_pass(blk.gather(image), settings.bloom_threshold,
-                                    settings.bloom_intensity))
-    if settings.fxaa:
-        image = blk.take(fxaa_pass(blk.gather(image)))
-    nan_mask = torch.isnan(image).any(-1, keepdim=True)
-    albedo_out = albedo
-    if image.shape[:2] != albedo.shape[:2]:
-        full = (image.shape[0] * blk.ny, image.shape[1] * blk.nx)
-        albedo_out = blk.take(nearest_sample(blk.gather(albedo), uv_grid(full, dev)))
-    image = torch.where(
-        nan_mask, torch.cat([albedo_out, torch.ones_like(albedo_out[..., :1])], dim=-1), image
-    )
+    with pass_scope("pass:overlay"):
+        image = current
+        if settings.hdr:
+            image = torch.cat([inverse_reinhard_luminance(image[..., :3]), image[..., 3:4]],
+                              dim=-1)
+        if settings.bloom:
+            image = blk.take(bloom_pass(blk.gather(image), settings.bloom_threshold,
+                                        settings.bloom_intensity))
+        if settings.fxaa:
+            image = blk.take(fxaa_pass(blk.gather(image)))
+        nan_mask = torch.isnan(image).any(-1, keepdim=True)
+        albedo_out = albedo
+        if image.shape[:2] != albedo.shape[:2]:
+            full = (image.shape[0] * blk.ny, image.shape[1] * blk.nx)
+            albedo_out = blk.take(nearest_sample(blk.gather(albedo), uv_grid(full, dev)))
+        image = torch.where(
+            nan_mask, torch.cat([albedo_out, torch.ones_like(albedo_out[..., :1])], dim=-1),
+            image,
+        )
 
-    reservoirs = dict(
-        direct_temporal=direct_temporal,
-        emissive_temporal=em_temporal,
-        indirect_temporal=ind_temporal,
-        de_spatial=de_spatial,
-        indirect_spatial=indirect_spatial,
-    )
-    if settings.reservoir_f16:
-        reservoirs = {k: compress_reservoir(v) for k, v in reservoirs.items()}
+    with pass_scope("pass:pack"):
+        reservoirs = dict(
+            direct_temporal=direct_temporal,
+            emissive_temporal=em_temporal,
+            indirect_temporal=ind_temporal,
+            de_spatial=de_spatial,
+            indirect_spatial=indirect_spatial,
+        )
+        if settings.reservoir_f16:
+            reservoirs = {k: compress_reservoir(v) for k, v in reservoirs.items()}
 
-    new_state = FrameState(
-        frame_number=frame_number + 1,
-        prev_gbuffer=gbuffer,
-        prev_tonemapped=tonemapped,
-        prev_taa=prev_taa,
-        prev_upscaled=prev_upscaled,
-        **reservoirs,
-    )
-    stats = None
-    if settings.collect_stats:
-        # Over the whole image: cross-rank sums under a sharded frame.
-        stats = {
-            "background_fraction": blk.mean(bg.to(torch.float32)),
-            "nonfinite_pixels": blk.sum(nan_mask.to(torch.int32).sum()),
-            "mean_luminance_direct": blk.mean(luminance(direct_d)),
-            "mean_luminance_emissive": blk.mean(luminance(em_d)),
-            "mean_luminance_indirect": blk.mean(luminance(ind_d)),
-            "mean_temporal_count": blk.mean(reservoirs["direct_temporal"].count),
-            "mean_reservoir_lifetime": blk.mean(reservoirs["direct_temporal"].lifetime),
-        }
+        new_state = FrameState(
+            frame_number=frame_number + 1,
+            prev_gbuffer=gbuffer,
+            prev_tonemapped=tonemapped,
+            prev_taa=prev_taa,
+            prev_upscaled=prev_upscaled,
+            **reservoirs,
+        )
+        stats = None
+        if settings.collect_stats:
+            # Over the whole image: cross-rank sums under a sharded frame.
+            stats = {
+                "background_fraction": blk.mean(bg.to(torch.float32)),
+                "nonfinite_pixels": blk.sum(nan_mask.to(torch.int32).sum()),
+                "mean_luminance_direct": blk.mean(luminance(direct_d)),
+                "mean_luminance_emissive": blk.mean(luminance(em_d)),
+                "mean_luminance_indirect": blk.mean(luminance(ind_d)),
+                "mean_temporal_count": blk.mean(reservoirs["direct_temporal"].count),
+                "mean_reservoir_lifetime": blk.mean(reservoirs["direct_temporal"].lifetime),
+            }
 
     outputs = RenderOutputs(
         image=image,

@@ -18,6 +18,7 @@ from hikari_tpu_torch.scene.buffers import SceneBuffers
 from hikari_tpu_torch.trace.api import Hit, HitInfo, gather_triangle_vertices, hit_info, trace_rays
 from hikari_tpu_torch.trace.intersect import inside_aabb
 from hikari_tpu_torch.utils import INV_TAU, TAU, basis_apply, dot3, fract, normal_basis, safe_normalize
+from hikari_tpu_torch.utils.profiling import host_read
 
 # "No emissive chosen" — the reference's DONT_SAMPLE_EMISSIVE (light.wgsl:243).
 NO_EMISSIVE = -1
@@ -101,7 +102,10 @@ def _emissive_walk(scene: SceneBuffers, position, exclude_instance, rand_1d):
     dev = position.device
     pos = position.reshape(-1, 3)
     R = pos.shape[0]
-    excl = torch.broadcast_to(torch.as_tensor(exclude_instance, device=dev), shape).reshape(-1)
+    if not (isinstance(exclude_instance, torch.Tensor) and exclude_instance.device == dev):
+        exclude_instance = host_read("emissive_exclude",
+                                     lambda: torch.as_tensor(exclude_instance, device=dev))
+    excl = torch.broadcast_to(exclude_instance, shape).reshape(-1)
     rand = torch.broadcast_to(rand_1d, shape).reshape(-1)
 
     num_enodes = scene.num_enodes
@@ -126,7 +130,7 @@ def _emissive_walk(scene: SceneBuffers, position, exclude_instance, rand_1d):
     count = torch.zeros((R,), device=dev)
     chosen = torch.full((R,), NO_EMISSIVE, dtype=torch.int32, device=dev)
     for step in range(num_enodes):
-        if step > 0 and not bool((idx != end).any()):
+        if step > 0 and not host_read("emissive_walk", lambda: bool((idx != end).any())):
             break
         safe_idx = torch.clamp(idx, 0, num_enodes - 1)
         f = frows[safe_idx]

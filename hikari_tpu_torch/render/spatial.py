@@ -73,6 +73,7 @@ from hikari_tpu_torch.utils import (
     safe_normalize,
 )
 from hikari_tpu_torch.utils.block import current
+from hikari_tpu_torch.utils.profiling import host_read
 
 _f32 = np.float32
 
@@ -172,7 +173,7 @@ def spatial_reuse_pass(
 
     frame_phase = float(random_float(frame_number))
     rot = fract(s.random.sum(-1) + frame_phase)
-    wh = torch.tensor([rw, rh], dtype=torch.float32, device=dev)
+    wh = host_read("spatial_size", lambda: torch.tensor([rw, rh], dtype=torch.float32, device=dev))
 
     def eval_tap(r, q, sample_depth, in_bounds, occluded):
         """Rejection + GRIS-Jacobian merge of one neighbour candidate
@@ -238,7 +239,9 @@ def spatial_reuse_pass(
         v = torch.remainder(variant + i, K).long()
 
         def at(table):
-            t = torch.tensor(table, dtype=torch.int64, device=dev)[v]  # (rh, rw, 2)
+            t = host_read("spatial_taps",
+                          lambda: torch.tensor(table, dtype=torch.int64, device=dev))
+            t = t[v]  # (rh, rw, 2)
             return t[..., 0], t[..., 1]
 
         oy, ox = at(offs)

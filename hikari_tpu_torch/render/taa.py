@@ -18,6 +18,7 @@ import torch
 from hikari_tpu_torch.render.filters import edge_shift, nearest_sample, pixel_grid, texel
 from hikari_tpu_torch.render.types import GBuffer
 from hikari_tpu_torch.utils import safe_sqrt0, uv_grid
+from hikari_tpu_torch.utils.profiling import host_read
 
 
 def clip_towards_aabb_center(prev_c, cur_c, aabb_min, aabb_max):
@@ -104,14 +105,15 @@ def nearest_velocity(gbuffer: GBuffer, uv, inv_size):
     offs = [(tx, ty), (-tx, ty), (tx, -ty), (-tx, -ty)]
     dev = uv.device
     depths = torch.stack(
-        [nearest_sample(gbuffer.position, uv + torch.tensor(o, dtype=torch.float32, device=dev))[..., 3]
+        [nearest_sample(gbuffer.position, uv + host_read(
+            "taa_dilation", lambda: torch.tensor(o, dtype=torch.float32, device=dev)))[..., 3]
          for o in offs], dim=-1,
     )
     depth = nearest_sample(gbuffer.position, uv)[..., 3]
     max_depth = depths.amax(-1)
     is_max = depths == max_depth[..., None]
-    xsign = torch.tensor([1.0, -1.0, 1.0, -1.0], device=dev)
-    ysign = torch.tensor([1.0, 1.0, -1.0, -1.0], device=dev)
+    xsign = host_read("taa_dilation", lambda: torch.tensor([1.0, -1.0, 1.0, -1.0], device=dev))
+    ysign = host_read("taa_dilation", lambda: torch.tensor([1.0, 1.0, -1.0, -1.0], device=dev))
     ox = tx * torch.where(is_max, xsign, 0.0).sum(-1)
     oy = ty * torch.where(is_max, ysign, 0.0).sum(-1)
     offset = torch.where((depth < max_depth)[..., None], torch.stack([ox, oy], dim=-1), 0.0)
@@ -288,5 +290,7 @@ def taa_jasmine(
 
     out_rgb = prev + (cur - prev) * (0.1 / upscale_ratio)
     out = torch.cat([out_rgb, render[..., 3:4]], dim=-1)
-    clear = torch.tensor(clear_color, dtype=torch.float32, device=dev).broadcast_to((4,))
+    clear = host_read("taa_clear",
+                      lambda: torch.tensor(clear_color, dtype=torch.float32, device=dev))
+    clear = clear.broadcast_to((4,))
     return torch.where(has_content[..., None], out, clear)

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from hikari_tpu_torch.utils import luminance
+from hikari_tpu_torch.utils.profiling import host_read
 
 
 def reinhard_luminance(color):
@@ -33,5 +34,6 @@ def tone_mapping(direct, emissive, indirect, clear_color):
     color = torch.where(torch.isfinite(color), color, 0.0)
     rgb = reinhard_luminance(torch.clamp(color[..., :3], min=0.0039))
     out = torch.cat([rgb, color[..., 3:4]], dim=-1)
-    clear = torch.tensor(clear_color, dtype=torch.float32, device=color.device)
+    clear = host_read("tonemap_clear",
+                      lambda: torch.tensor(clear_color, dtype=torch.float32, device=color.device))
     return torch.where(color[..., 3:4] > 0.0, out, clear)

@@ -41,6 +41,7 @@ from contextlib import contextmanager
 from dataclasses import dataclass
 
 import torch
+from torch.profiler import record_function
 
 from hikari_tpu_torch.config import DISTANCE_MAX, F32_MAX
 from hikari_tpu_torch.diff import clip_gradient
@@ -52,6 +53,7 @@ from hikari_tpu_torch.trace.scatter import trace_scatter
 from hikari_tpu_torch.trace.tiled import TILE_R, trace_tiled
 from hikari_tpu_torch.trace.tile_walk import pack_clusters, trace_tile_walk
 from hikari_tpu_torch.utils import safe_normalize, take_rows
+from hikari_tpu_torch.utils.profiling import host_read
 
 # trace_rays calls that went to a kernel-backed search with rays on a CUDA
 # device (each is one kernel launch, so a run can check every trace went
@@ -265,12 +267,24 @@ def trace_rays(
     Inside a remat region (``trace_tape``) a replaying run returns the
     recorded hit of the same call and searches nothing. Under
     ``shard_tracing`` the kernel backends search this rank's shard of
-    the rays."""
-    global trace_calls, rays_traced
+    the rays. A search runs under the profiler range ``trace_rays``; a
+    replayed hit opens none."""
     replayed = _replayed_hit() if _tapes else None
     if replayed is not None:
         _record_hit(replayed)
         return replayed
+    with record_function("trace_rays"):
+        hit = _search(scene, origin, direction, max_distance, early_distance, exclude_instance,
+                      range_lo, range_hi, method, bruteforce_max_tris, max_steps)
+    if _tapes:
+        _record_hit(hit)
+    return hit
+
+
+def _search(scene, origin, direction, max_distance, early_distance, exclude_instance, range_lo,
+            range_hi, method, bruteforce_max_tris, max_steps) -> Hit:
+    """``trace_rays``'s search, as it documents."""
+    global trace_calls, rays_traced
     if method not in _SEARCH_METHODS:
         raise ValueError(f"unknown trace method {method!r}")
     if method in ("auto", "auto_xla"):
@@ -283,7 +297,9 @@ def trace_rays(
     def per_ray(x, default, dtype):
         if x is None:
             return torch.full((R,), default, dtype=dtype, device=dev)
-        x = torch.as_tensor(x, device=dev).detach().to(dtype)
+        if not (isinstance(x, torch.Tensor) and x.device == dev):
+            x = host_read("trace_args", lambda: torch.as_tensor(x, device=dev))
+        x = x.detach().to(dtype)
         return torch.broadcast_to(x, shape).reshape(-1).contiguous()
 
     maxd = per_ray(max_distance, F32_MAX, torch.float32)
@@ -314,16 +330,13 @@ def trace_rays(
     if dev.type == "cuda" and searched and method not in _PLAIN_METHODS:
         trace_calls += 1
     inst = torch.where(prim >= 0, scene.tri_inst[prim.clamp(min=0)], -1).to(torch.int32)
-    hit = Hit(
+    return Hit(
         t=t.reshape(shape),
         prim=prim.reshape(shape),
         inst=inst.reshape(shape),
         u=u.reshape(shape),
         v=v.reshape(shape),
     )
-    if _tapes:
-        _record_hit(hit)
-    return hit
 
 
 def tile_cluster_rule(num_tris: int) -> tuple[int, bool]:
@@ -517,7 +530,7 @@ def _trace_bvh_chunk(scene: SceneBuffers, o, d, maxd, early, excl, lo, hi, max_s
     for _ in range(step_cap):
         active = idx != end
         keep = active & ~((best_prim >= 0) & (best_t < early))
-        if not bool(keep.any()):
+        if not host_read("bvh_step", lambda: bool(keep.any())):
             break
         safe_idx = torch.clamp(idx, 0, num_nodes - 1).long()
         entry = scene.node_entry[safe_idx]

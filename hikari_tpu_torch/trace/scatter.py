@@ -64,6 +64,7 @@ from hikari_tpu_torch.config import F32_EPSILON, F32_MAX
 from hikari_tpu_torch.trace.closest_hit import PACK_WIDTH, SUBLANES, reduce_sublanes
 from hikari_tpu_torch.trace.tiled import safe_inv_dir
 from hikari_tpu_torch.utils.nvcc import build_library, check_kernel_arg
+from hikari_tpu_torch.utils.profiling import host_read
 
 CLUSTER = 128  # triangles per cluster
 BLOCK_R = 128  # items per kernel block
@@ -179,10 +180,8 @@ def scatter_plan_reference(cmin, cmax, cvalid, o, d, maxd, lo, hi, items_per_ray
     # Phase A: the entered pairs as keys cluster * R + ray, sorted.
     keys = [torch.zeros((0,), dtype=torch.int64, device=dev)]
     for s, e in _chunks(R, L):
-        r, c = torch.nonzero(
-            _chunk_mask(cmin, cmax, cvalid, o[s:e], inv[s:e], maxd[s:e], lo[s:e], hi[s:e]),
-            as_tuple=True,
-        )
+        mask = _chunk_mask(cmin, cmax, cvalid, o[s:e], inv[s:e], maxd[s:e], lo[s:e], hi[s:e])
+        r, c = host_read("scatter_plan_twin", lambda: torch.nonzero(mask, as_tuple=True))
         keys.append(c * R + (s + r))
     key = torch.sort(torch.cat(keys)).values
     pair_c = torch.div(key, R, rounding_mode="floor")
@@ -197,7 +196,8 @@ def scatter_plan_reference(cmin, cmax, cvalid, o, d, maxd, lo, hi, items_per_ray
     keep = pos < cap
     items = torch.full((cap,), -1, dtype=torch.int64, device=dev)
     items[pos[keep]] = pair_r[keep]
-    return meta, items, int(key.shape[0]) - int(keep.sum())
+    kept = host_read("scatter_plan_twin", lambda: int(keep.sum()))
+    return meta, items, int(key.shape[0]) - kept
 
 
 def build_plan() -> float:
@@ -277,7 +277,7 @@ def scatter_plan(cmin, cmax, cvalid, o, d, maxd, lo, hi, items_per_ray: int = 32
         check(_plan_lib.hikari_scatter_plan_place(
             masks.data_ptr(), base.data_ptr(), R, L, cap, items.data_ptr(), stream,
             ctypes.byref(launched)))
-    return meta, items, int(dropped)
+    return meta, items, host_read("scatter_plan_dropped", lambda: int(dropped))
 
 
 def mask_bytes(R: int, L: int) -> int:
@@ -313,7 +313,7 @@ def scatter_items_reference(meta, fields, packed):
     v_out = torch.zeros((nb, BLOCK_R), dtype=torch.float32, device=dev)
     rows = packed.reshape(-1, CLUSTER, PACK_WIDTH)
     f = fields.reshape(FIELDS, nb, BLOCK_R)
-    used = torch.nonzero(meta[:, 1] > 0)[:, 0]
+    used = host_read("scatter_items_twin", lambda: torch.nonzero(meta[:, 1] > 0)[:, 0])
     k_ids = torch.arange(CLUSTER, dtype=torch.int32, device=dev)
     chunk = max(1, TWIN_CHUNK_PAIRS // (BLOCK_R * CLUSTER))
     for s in range(0, used.numel(), chunk):

@@ -42,6 +42,7 @@ from hikari_tpu_torch.trace.tiled import (
     tile_cluster_entries,
 )
 from hikari_tpu_torch.utils.nvcc import build_library, check_kernel_arg
+from hikari_tpu_torch.utils.profiling import host_read
 
 # Kernel launches made by ``tile_walk`` (one per call on CUDA tensors).
 launches = 0
@@ -124,7 +125,7 @@ def _walk(packed, cmin, cmax, o, d, maxd, early, excl, lo, hi, order, entry, ray
 
     active = entry[:, 0] < F32_MAX
     for j in range(L):
-        idx = torch.nonzero(active)[:, 0]
+        idx = host_read("tile_walk_twin", lambda: torch.nonzero(active)[:, 0])
         if idx.numel() == 0:
             break
         for s in range(0, idx.numel(), chunk):

@@ -35,6 +35,7 @@ import torch
 from hikari_tpu_torch.config import F32_EPSILON, F32_MAX
 from hikari_tpu_torch.utils import dot3_ordered
 from hikari_tpu_torch.utils.nvcc import build_library, check_kernel_arg
+from hikari_tpu_torch.utils.profiling import host_read
 
 CLUSTER = 512  # triangles per cluster of phase 2
 TILE_R = 512  # rays per tile
@@ -339,7 +340,8 @@ def trace_tiled(scene, o, d, maxd, early, excl, lo, hi):
         e_j = entry_sorted[:, j]
         done_early = (bp >= 0) & (bt < early_t)
         ray_open = ~done_early & (bt > e_j[:, None]) & (ray_maxent >= e_j[:, None])
-        ids = ((e_j < F32_MAX) & ray_open.any(dim=1)).nonzero()[:, 0]
+        open_tiles = (e_j < F32_MAX) & ray_open.any(dim=1)
+        ids = host_read("tiled_step", lambda: open_tiles.nonzero()[:, 0])
         if ids.numel() == 0:
             break
         steps += 1

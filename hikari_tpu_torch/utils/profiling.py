@@ -3,7 +3,11 @@
 
 * ``pass_scope(name)`` labels a render pass: a ``torch.profiler``
   ``record_function`` range, visible in a profiler trace on the CPU and,
-  for the kernels it launches, on the card;
+  for the kernels it launches, on the card. ``render_frame`` opens
+  ``render_frame`` and one ``pass:<name>`` range a pass inside it;
+* ``host_read(site, fn)`` runs a blocking device-to-host read (or a
+  blocking copy to the card) under the range ``host_sync:<site>`` and
+  counts it in ``host_syncs``;
 * ``trace_to(dir)`` records a ``torch.profiler`` trace of the code under
   it (CPU, plus CUDA where a card is present) and writes it to ``dir`` as
   a Chrome trace (``trace.json``);
@@ -22,9 +26,33 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 
+# Blocking reads that went through ``host_read`` in this process, on any
+# device: each waits for the card to finish the work queued before it.
+host_syncs = 0
+
+
 def pass_scope(name: str):
     """Label a render pass in the profile (use as context manager)."""
     return record_function(name)
+
+
+def host_read(site: str, fn):
+    """``fn()``, a read that waits for the card (``bool(t)``, ``.item()``,
+    ``nonzero``, ``.cpu()``, a blocking copy of host data to the card),
+    under the range ``host_sync:<site>``; adds one to ``host_syncs``.
+    Under ``torch.cuda.set_sync_debug_mode`` the mode is lifted for this
+    read alone, so a frame run in mode "error" raises at any other sync."""
+    global host_syncs
+    host_syncs += 1
+    with record_function(f"host_sync:{site}"):
+        mode = torch.cuda.get_sync_debug_mode() if torch.cuda.is_initialized() else 0
+        if not mode:
+            return fn()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
 
 
 @contextlib.contextmanager
