@@ -5,9 +5,10 @@
 
 Phases, each reported on its own line:
   1. [device] require CUDA; print the card and its power limit.
-  2. [build] compile the seven kernels from csrc/ with nvcc
+  2. [build] compile the eight kernels from csrc/ with nvcc
      (closest_hit.cu, tile_walk.cu, scatter_items.cu, window_pack.cu,
-     take_along.cu, tile_entries.cu, scatter_plan.cu) and the C++ BVH
+     take_along.cu, tile_entries.cu, scatter_plan.cu, spatial_reuse.cu)
+     and the C++ BVH
      builder with g++, all at once; print each build time and ptxas'
      registers, shared memory and spills.
   3. cornell. [kernel]/[time]: the closest-hit kernel against its plain
@@ -181,8 +182,19 @@ Phases, each reported on its own line:
      Per case and rank: host ms/frame, peak memory, collective calls,
      bytes and ms by kind (halo, gather, reduce). Then
      ``python -m hikari_tpu_torch.bench_scaling --procs 2``.
+  17. [spatial] (after [passes]): the spatial reuse's tap kernel
+     (``csrc/spatial_reuse.cu``) on the main path: 6 frames of the
+     benchmark cell's settings (the bench frame: 518,400 pixels, indirect
+     16 taps), counts set to 0 just before, one launch a spatial pass (the
+     kernel table's launches); 6 more with the emissive reuse on too (8
+     taps). The last frame's recorded calls of both channels: bit for bit
+     against the twin; the kernel's CUDA-event ms (one call's launch made
+     again) beside the bound, the call's CUDA-event ms and the host ms of
+     the spiral's table, the twin's device ms; the taps taken; ptxas'
+     registers and spills.
   Each of 8-11 sets the counts to 0 just before each run and requires
-  every trace of its main paths to go through the kernel of that path.
+  every trace of its main paths to go through the kernel of that path,
+  and every spatial reuse pass to launch the spatial tap kernel once.
 Every kernel case has a tie case: one triangle duplicated at prims 1, 4 and
 8 (for the tile walk, 1 and 4 of one cluster and the next cluster's row
 8), where the JAX kernels' per-sublane rule keeps the sublane-0 prim and
@@ -216,6 +228,8 @@ import time
 # difference is exactly 0; the measured maximum is printed.
 ATOL = 1e-5
 FRAMES = 8
+# [spatial]: frames of each run of the cell's settings.
+SPATIAL_FRAMES = 6
 CORNELL_HW = (1080, 1920)
 CITY_HW = (512, 512)
 SMALL_HW = (48, 63)
@@ -566,6 +580,8 @@ def run_main_path(name, scene, cam, settings, device, tag="[main]"):
             dropped.append(sc.dropped - before)
     launches = {"closest_hit": ch.launches, "tile_walk": tw.launches, "scatter_items": sc.launches}
     traces = api.trace_calls
+    spatial_counts = {k: v for k, v in read_counts().items() if k.startswith("spatial")}
+    require_spatial_kernel(name, spatial_counts)
     check_cluster_errors(name)
     # Closest-hit launches over tables above one TPU tile (K1b's regime),
     # part of the closest-hit count.
@@ -610,7 +626,7 @@ def run_main_path(name, scene, cam, settings, device, tag="[main]"):
         f"the f16 reservoir state (w, w_sum, w2_sum, radiance) {f16_inf}; scatter items "
         f"dropped per frame {dropped}; closest-hit launches over tables above 2,048 "
         f"triangles {launches_k1b}")
-    return state, dict(launches, closest_hit_k1b=launches_k1b, **phases)
+    return state, dict(launches, closest_hit_k1b=launches_k1b, **phases, **spatial_counts)
 
 
 def check_small(name, scene_gpu, scene_cpu, cam, settings, device, frames=(0, 1, 2)):
@@ -1083,6 +1099,7 @@ def run_render(device):
             if not (traces > 0 and k1 == traces and tw.launches == sc.launches == 0):
                 raise AssertionError(f"{label}: {traces} trace calls, closest-hit {k1}, tile walk "
                                      f"{tw.launches}, scatter {sc.launches}")
+            require_spatial_kernel(f"[render] {label}", read_counts())
             img = res["outputs"].image
             nonfinite = int((~torch.isfinite(img)).sum())
             mean_lum = float(luminance(img[..., :3]).mean())
@@ -1102,6 +1119,7 @@ def run_render(device):
 
 def reset_counts():
     """Set every trace and kernel launch count to 0."""
+    from hikari_tpu_torch.render import spatial
     from hikari_tpu_torch.trace import api
     from hikari_tpu_torch.trace import closest_hit as ch
     from hikari_tpu_torch.trace import scatter as sc
@@ -1109,18 +1127,28 @@ def reset_counts():
     from hikari_tpu_torch.trace import tiled as ttiled
 
     ch.launches = ch.streamed_launches = tw.launches = sc.launches = api.trace_calls = 0
-    ttiled.launches = sc.plan_launches = 0
+    ttiled.launches = sc.plan_launches = spatial.launches = spatial.passes = 0
 
 
 def read_counts():
-    """The launch counts of the three trace kernels and the trace calls."""
+    """The launch counts of the three trace kernels and the trace calls;
+    the spatial tap kernel's launches and the spatial passes on the card."""
+    from hikari_tpu_torch.render import spatial
     from hikari_tpu_torch.trace import api
     from hikari_tpu_torch.trace import closest_hit as ch
     from hikari_tpu_torch.trace import scatter as sc
     from hikari_tpu_torch.trace import tile_walk as tw
 
     return {"closest_hit": ch.launches, "tile_walk": tw.launches, "scatter_items": sc.launches,
-            "trace_calls": api.trace_calls}
+            "trace_calls": api.trace_calls, "spatial_reuse": spatial.launches,
+            "spatial_passes": spatial.passes}
+
+
+def require_spatial_kernel(label, counts):
+    """Every spatial reuse pass on the card launched the tap kernel once."""
+    if counts["spatial_reuse"] != counts["spatial_passes"]:
+        raise AssertionError(f"{label}: {counts['spatial_reuse']} spatial tap kernel launches for "
+                             f"{counts['spatial_passes']} spatial reuse passes")
 
 
 def grad_advance(scene, cam, settings, device):
@@ -1193,6 +1221,7 @@ def run_grad_path(name, scene, cam, settings, device):
             and counts["tile_walk"] == counts["scatter_items"] == 0):
         raise AssertionError(f"{name}: {counts}, closest-hit launches in the forward {k1_fwd}, "
                              f"in the backward {k1_bwd}")
+    require_spatial_kernel(f"[grad] {name}", counts)
     norms = torch.stack(norms).cpu().numpy()  # (frames, leaves)
     finite = torch.stack(finite).cpu().numpy()
     median_ms = float(np.median(frame_ms[1:]))
@@ -1290,6 +1319,7 @@ def run_bench_phase(device):
     if not (counts["closest_hit"] > 0 and counts["tile_walk"] > 0 and counts["scatter_items"] == 0
             and counts["closest_hit"] + counts["tile_walk"] == counts["trace_calls"]):
         raise AssertionError(f"[bench] launches {counts}")
+    require_spatial_kernel("[bench]", counts)
     log(f"[bench] {seconds:.1f} s; launches {counts} (tile walk: the city extra)")
     return counts
 
@@ -1330,10 +1360,12 @@ def output_settings(settings, width, height):
 
 
 def require_k1_only(label, counts):
-    """Every trace of a phase went through the closest-hit kernel."""
+    """Every trace of a phase went through the closest-hit kernel, and every
+    spatial reuse pass through the spatial tap kernel."""
     if not (counts["trace_calls"] > 0 and counts["closest_hit"] == counts["trace_calls"]
             and counts["tile_walk"] == counts["scatter_items"] == 0):
         raise AssertionError(f"{label}: launches {counts}")
+    require_spatial_kernel(label, counts)
 
 
 def run_output_phase(cornell, cornell_cpu, cam, small, device):
@@ -1439,6 +1471,104 @@ def run_passes_phase(device):
             f"stage deltas {dev_deltas:.3f} ms/frame, profiled again {dev_again:.3f} (3%: "
             f"{0.03 * dev_again:.3f}); {time.perf_counter() - t0:.1f} s; launches {counts}")
     return launches
+
+
+def run_spatial_phase(device):
+    """[spatial]: the spatial reuse's tap kernel (``csrc/spatial_reuse.cu``)
+    on the main path: ``SPATIAL_FRAMES`` frames of the benchmark cell's
+    settings (``bench_config("cornell")``: 1920x1080 from 960x540, 518,400
+    pixels, the indirect spatial reuse's 16 taps), every count set to 0
+    just before; then as many with the emissive spatial reuse on too (8
+    taps). Each run must launch the kernel once a spatial pass. The last
+    frame's calls of both channels, recorded (``spatial.recording``) and
+    replayed: each bit for bit against its twin (every field and the
+    winner); the kernel's CUDA-event ms (``spatial.prepare``'s launch made
+    again) beside the bound (``spatial.bound_bytes`` at 3.35 TB/s; below
+    it fails), the call's CUDA-event ms and the host ms of the spiral's
+    table, and the twin's device time (torch.profiler); the taps taken.
+    Returns the indirect call's (max_abs_err, ms, plain_ms, bound_ms,
+    bound_by) and the main-path run's kernel launches."""
+    import torch
+
+    from hikari_tpu_torch.bench import bench_config
+    from hikari_tpu_torch.render import initial_state, render_frame, spatial
+    from hikari_tpu_torch.scene import build_scene_buffers
+    from hikari_tpu_torch.utils import map_tensors, same_bits
+    from hikari_tpu_torch.utils.nvcc import ptxas_summary
+
+    t0 = time.perf_counter()
+    scene, cam, cell = bench_config("cornell", device)
+    buffers = build_scene_buffers(scene, device)
+    runs, calls = {}, {}
+    for label, settings in (("the cell", cell),
+                            ("emissive reuse on", cell.replace(emissive_spatial_reuse=True))):
+        state = initial_state(settings, device)
+        torch.cuda.synchronize()
+        reset_counts()
+        with spatial.recording() as recorded, torch.no_grad():
+            for _ in range(SPATIAL_FRAMES):
+                first = len(recorded)
+                _, state = render_frame(buffers, cam, state, settings)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = SPATIAL_FRAMES * (1 + settings.emissive_spatial_reuse)
+        if not counts["spatial_reuse"] == counts["spatial_passes"] == want:
+            raise AssertionError(f"[spatial] {label}: {counts['spatial_reuse']} kernel launches "
+                                 f"for {counts['spatial_passes']} spatial passes ({want} expected)")
+        runs[label] = counts["spatial_reuse"]
+        calls.update((call["shade"] is None, call) for call in recorded[first:])
+    log(f"[spatial] {SPATIAL_FRAMES} frames, counts set to 0 just before: kernel launches = "
+        f"spatial passes: the cell {runs['the cell']}, emissive reuse on "
+        f"{runs['emissive reuse on']}")
+
+    result = None
+    for emissive in (False, True):
+        call = calls[emissive]
+        label = "emissive, 8 taps" if emissive else "indirect, 16 taps"
+        got, want = spatial.spatial_taps(**call), spatial.spatial_taps_reference(**call)
+        flat = []
+        map_tensors(flat.append, (got, want))
+        half = len(flat) // 2
+        bad = [i for i, (a, b) in enumerate(zip(flat[:half], flat[half:])) if not same_bits(a, b)]
+        if bad:
+            raise AssertionError(f"[spatial] {label}: leaves {bad} differ from the twin")
+        lh, lw = call["depth"].shape
+        rh, rw = call["grid_depth"].shape
+        nbytes = spatial.bound_bytes(lh, lw, rh, rw, emissive)
+        bound, by = bound_ms(0, nbytes)
+        # The kernel alone: one call's launch made again, between CUDA
+        # events. A call's CUDA events also time its host side (the
+        # spiral's table, the checks, the BRDF factors' ATen launches),
+        # which paces back-to-back calls.
+        ms = cuda_time_ms(spatial.prepare(**call), 50)
+        if ms < bound:
+            raise AssertionError(f"[spatial] {label}: {ms} ms is below the kernel's bound")
+        call_ms = cuda_time_ms(lambda c=call: spatial.spatial_taps(**c), 50)
+        pack_s = time.perf_counter()
+        for _ in range(20):
+            spatial.pack_spiral(call["spiral"], emissive)
+        pack_ms = (time.perf_counter() - pack_s) / 20 * 1e3
+        plain_ms = device_ms(lambda c=call: spatial.spatial_taps_reference(**c), 3)
+        taken = int((got[1] >= 0).sum())
+        log(f"[spatial] {label}: {lh}x{lw} pixels, kernel {ms:.4f} ms (CUDA events, 50 launches), bound "
+            f"{bound:.4f} ms ({by}, {nbytes} B), {bound / ms * 100:.1f}% of it; the call "
+            f"{call_ms:.4f} ms (CUDA events; the spiral's table {pack_ms:.3f} ms of host); twin "
+            f"{plain_ms:.3f} ms device; bitwise equal, {taken} pixels took a neighbour")
+        if not emissive:
+            result = (0.0, ms, plain_ms, bound, by)
+    log(f"[spatial] ptxas: {ptxas_summary(spatial.build_log)}; {time.perf_counter() - t0:.1f} s")
+    return result, runs["the cell"]
+
+
+def spatial_entry(res, launches):
+    """The kernel table's line of the spatial tap kernel: ``res`` and
+    ``launches`` (the main-path run's) from ``run_spatial_phase``."""
+    err, ms, plain, bound, by = res
+    return {"name": "spatial_reuse (the spatial reuse's tap loop)", "route": "cuda",
+            "source": "hikari_tpu_torch/csrc/spatial_reuse.cu",
+            "replaces": "none: the JAX package's spatial reuse is jnp (hikari_tpu/render/spatial.py:87)",
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
 def run_textured_phase(device):
@@ -1747,6 +1877,7 @@ def run_city_stream(city, small_arrays, small_scene, city_cam, device):
     if not (counts["trace_calls"] > 0 and counts["tile_walk"] == counts["trace_calls"]
             and counts["closest_hit"] == counts["scatter_items"] == 0):
         raise AssertionError(f"[dynamic] city_stream: launches {counts}")
+    require_spatial_kernel("[dynamic] city_stream", counts)
     img = res["outputs"].image
     nonfinite = int((~torch.isfinite(img)).sum())
     mean_lum = float(luminance(img[..., :3]).mean())
@@ -2263,6 +2394,7 @@ def run_remat_phase(cornell, cam, arrays, device):
         if not (k1_fwd == counts["trace_calls"] > 0) or k1_bwd:
             raise AssertionError(f"[remat] {label}: {counts}, closest-hit launches forward "
                                  f"{k1_fwd}, backward {k1_bwd}")
+        require_spatial_kernel(f"[remat] {label}", counts)
         if not all(bool(torch.isfinite(g).all()) for g in grads.values()):
             raise AssertionError(f"[remat] {label}: non-finite gradients")
         log(f"[remat] {label}: fwd+grad {ms:.2f} ms (host, one step), device {dev_ms:.2f} ms "
@@ -2566,6 +2698,7 @@ def main():
 
     from hikari_tpu_torch.config import DISTANCE_MAX
     from hikari_tpu_torch.io.scenes import city_config, city_scene, cornell_box_scene, cornell_config
+    from hikari_tpu_torch.render import spatial
     from hikari_tpu_torch.scene import compile_scene, native, to_device
     from hikari_tpu_torch.trace import api
     from hikari_tpu_torch.trace import closest_hit as ch
@@ -2591,10 +2724,11 @@ def main():
         return native.build_seconds
 
     builds = (ch.build, tw.build, sc.build, lambda: prims.build("window_pack"),
-              lambda: prims.build("take_along"), g_build, ttiled.build, sc.build_plan)
+              lambda: prims.build("take_along"), g_build, ttiled.build, sc.build_plan,
+              spatial.build)
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = [pool.submit(f) for f in builds]
-        ch_s, tw_s, sc_s, wp_s, ta_s, gxx_s, te_s, sp_s = (f.result() for f in futures)
+        ch_s, tw_s, sc_s, wp_s, ta_s, gxx_s, te_s, sp_s, sr_s = (f.result() for f in futures)
     log(f"[build] closest_hit.cu {ch_s:.2f} s; ptxas: {ptxas_summary(ch.build_log)}")
     log(f"[build] tile_walk.cu {tw_s:.2f} s; ptxas: {ptxas_summary(tw.build_log)}")
     log(f"[build] scatter_items.cu {sc_s:.2f} s; ptxas: {ptxas_summary(sc.build_log)}")
@@ -2604,6 +2738,7 @@ def main():
     log(f"[build] bvh_builder.cpp (g++) {gxx_s:.2f} s")
     log(f"[build] tile_entries.cu {te_s:.2f} s; ptxas: {ptxas_summary(ttiled.build_log)}")
     log(f"[build] scatter_plan.cu {sp_s:.2f} s; ptxas: {ptxas_summary(sc.plan_build_log)}")
+    log(f"[build] spatial_reuse.cu {sr_s:.2f} s; ptxas: {ptxas_summary(spatial.build_log)}")
 
     # ---- 3a. closest-hit kernel vs twin on the cornell shapes ----
     arrays = compile_scene(cornell_box_scene())
@@ -2919,6 +3054,8 @@ def main():
     torch.cuda.empty_cache()
     passes_launches = run_passes_phase(dev)
     log(f"[passes] closest-hit launches: {passes_launches}")
+    torch.cuda.empty_cache()
+    spatial_res, spatial_launches = run_spatial_phase(dev)
     log(f"[launches] closest-hit launches of this slice's paths: [output] {output_launches}, "
         f"[passes] {passes_launches}, [textured] {textured_launches}")
     bench_counts = run_bench_phase(dev)
@@ -3027,6 +3164,7 @@ def main():
                    "tools/bench_pallas_prims.py:193", t2_launches, "take_along_T2"),
         prim_entry("take_along (T3, repeated gather)", "hikari_tpu_torch/csrc/take_along.cu",
                    "tools/bench_pallas_prims.py:227", t3_launches, "take_along_T3"),
+        spatial_entry(spatial_res, spatial_launches),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

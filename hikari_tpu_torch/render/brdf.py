@@ -41,9 +41,12 @@ def f_schlick(f0, f90, voh):
     return f0 + (f90 - f0) * torch.pow(1.0 - voh, 5.0)
 
 
+def fresnel_f90(f0):
+    return saturate((f0 * (50.0 * 0.33)).sum(-1))
+
+
 def fresnel(f0, loh):
-    f90 = saturate((f0 * (50.0 * 0.33)).sum(-1))
-    return f_schlick_vec(f0, f90, loh)
+    return f_schlick_vec(f0, fresnel_f90(f0), loh)
 
 
 def specular(f0, roughness, nov, nol, noh, loh, specular_intensity=1.0):
@@ -208,6 +211,18 @@ def shading(v, n, l, surface: Surface, input_radiance, ambient_color):
     )
     a = input_radiance[..., 3:4]
     return lit_radiance * a + ambient_radiance * (1.0 - a)
+
+
+def shading_factors(v, n, surface: Surface, ambient_color):
+    """The factors of ``shading`` that no light direction changes, each
+    computed as ``shading`` computes it: (f0, diffuse colour, NoV,
+    fresnel's f90, the ambient term)."""
+    f0, diffuse_color = _f0_diffuse(surface)
+    nov = torch.clamp(dot3(n, v), min=0.0001)
+    ambient_radiance = ambient(
+        diffuse_color, surface.roughness, surface.occlusion, f0, n, v, ambient_color
+    )
+    return f0, diffuse_color, nov, fresnel_f90(f0), ambient_radiance
 
 
 def env_brdf(v, n, surface: Surface):

@@ -99,9 +99,8 @@ def set_reservoir(s: Sample, w_new) -> Reservoir:
     )
 
 
-def update_reservoir(r: Reservoir, s: Sample, w_new, mask=None) -> Reservoir:
-    """Weighted random replacement (reference ``update_reservoir``,
-    light.wgsl:146-173); ``mask`` gates the whole update."""
+def _update(r: Reservoir, s: Sample, w_new):
+    """``update_reservoir`` without its mask, and where it took ``s``."""
     w_sum = r.w_sum + w_new
     w2_sum = r.w2_sum + w_new * w_new
     count = r.count + 1.0
@@ -115,6 +114,13 @@ def update_reservoir(r: Reservoir, s: Sample, w_new, mask=None) -> Reservoir:
         w_sum=w_sum,
         w2_sum=w2_sum,
     )
+    return out, replace_mask
+
+
+def update_reservoir(r: Reservoir, s: Sample, w_new, mask=None) -> Reservoir:
+    """Weighted random replacement (reference ``update_reservoir``,
+    light.wgsl:146-173); ``mask`` gates the whole update."""
+    out, _ = _update(r, s, w_new)
     if mask is not None:
         out = out.select(mask, r)
     return out
@@ -122,11 +128,18 @@ def update_reservoir(r: Reservoir, s: Sample, w_new, mask=None) -> Reservoir:
 
 def merge_reservoir(r: Reservoir, other: Reservoir, p, mask=None) -> Reservoir:
     """Reference ``merge_reservoir`` (light.wgsl:175-179)."""
-    merged = update_reservoir(r, other.s, p * other.w * other.count)
+    return merge_reservoir_taken(r, other, p, mask)[0]
+
+
+def merge_reservoir_taken(r: Reservoir, other: Reservoir, p, mask=None):
+    """``merge_reservoir`` and where it took ``other``'s sample (under
+    ``mask``)."""
+    merged, taken = _update(r, other.s, p * other.w * other.count)
     merged = replace(merged, count=r.count + other.count)
     if mask is not None:
         merged = merged.select(mask, r)
-    return merged
+        taken = taken & mask
+    return merged, taken
 
 
 def clamp_reservoir(r: Reservoir, max_count) -> Reservoir:
