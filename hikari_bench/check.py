@@ -39,11 +39,10 @@ from pathlib import Path
 
 import torch
 
-from hikari_bench import scenes, trainer
+from hikari_bench import scenes, spec, trainer
 from hikari_bench.reference import brute
 
-HERE = Path(__file__).resolve().parent
-REFERENCE = "hikari_bench.reference"
+REFERENCE = scenes.REFERENCE
 # Relative agreement of a ray's t with the float64 nearest hit.
 T_RTOL = 1e-4
 # An image or state element is off where it differs by more than this
@@ -62,9 +61,10 @@ class Number:
         return self.value <= self.limit
 
 
-def load_limits(workload: str) -> dict:
-    path = HERE / "limits" / f"{workload}.json"
-    return json.loads(path.read_text())["limits"]
+def load_limits(workload: str, root: Path | None = None) -> dict:
+    """The limits of ``workload``: ``limits/<workload>.json`` of the
+    benchmark at ``root``, else of this package."""
+    return spec.load_json(spec.locate(root, "limits", f"{workload}.json"))["limits"]
 
 
 def leaves(obj, prefix=""):

@@ -87,25 +87,26 @@ class HalfBatch(harness.Program):
 
 
 class HitAltered(harness.Program):
-    """The search's answers altered where they are produced: every 16th
-    ray's t 10% farther."""
+    """The search's answers altered where they are produced, whichever
+    search the scene and the tracer take (``trace_api._search``): every
+    16th ray's t 10% farther."""
 
     @contextmanager
     def _altered(self):
         api = self.trace_api
-        saved = api.closest_hit
+        saved = api._search
 
         def alter(*a, **k):
-            t, prim, u, v = saved(*a, **k)[:4]
-            t = t.clone()
-            t[::16] *= 1.1
-            return t, prim, u, v
+            hit = saved(*a, **k)
+            t = hit.t.clone()
+            t.reshape(-1)[::16] *= 1.1
+            return dataclasses.replace(hit, t=t)
 
-        api.closest_hit = alter
+        api._search = alter
         try:
             yield
         finally:
-            api.closest_hit = saved
+            api._search = saved
 
     def render(self, state):
         with self._altered():

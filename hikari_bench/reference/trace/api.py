@@ -1,6 +1,8 @@
 """Ray-tracing API: closest-hit queries over the compiled scene, in plain
 PyTorch: every ray against every triangle (``trace/closest_hit``), the
-search of the configurations' small scenes.
+search of the small scenes, and above them, or for any tracer name but
+the small-scene ones, the clustered search (``trace/accel``), which
+returns the same answers bit for bit.
 
 The search is not differentiable (it returns integer hit ids plus
 detached (t, u, v)); ``refine_hit`` / ``hit_info`` recompute (t, u, v) at
@@ -17,6 +19,7 @@ import torch
 from hikari_bench.reference.config import DISTANCE_MAX, F32_MAX
 from hikari_bench.reference.diff import clip_gradient
 from hikari_bench.reference.scene.buffers import SceneBuffers
+from hikari_bench.reference.trace import accel
 from hikari_bench.reference.trace.closest_hit import closest_hit, pack_triangles
 from hikari_bench.reference.trace.intersect import intersects_triangle
 from hikari_bench.reference.utils import safe_normalize, take_rows
@@ -24,6 +27,11 @@ from hikari_bench.reference.utils import safe_normalize, take_rows
 # trace_rays calls with rays on a CUDA device, and rays searched.
 trace_calls = 0
 rays_traced = 0
+
+# The port's tracer names; the answer is the exact closest hit for each.
+METHODS = ("auto", "auto_xla", "pallas", "pallas_tiled", "scatter", "tiled", "bvh", "bruteforce")
+# The names that test every triangle up to ``bruteforce_max_tris``.
+EVERY_TRIANGLE = ("auto", "auto_xla", "pallas", "bruteforce")
 
 
 @dataclass(frozen=True)
@@ -56,18 +64,18 @@ def trace_rays(
     ``early_distance`` and ``max_steps`` are accepted and ignored: the
     answer is always the exact closest hit.
 
-    "auto" and "pallas" test every triangle up to ``bruteforce_max_tris``
-    triangles (a larger scene raises); among hits at exactly equal t they
-    keep a best per (prim mod 8) sublane and halve the eight towards the
-    lower sublane unless the upper one is strictly nearer, so the
-    sublanes win in the order 0, 4, 2, 6, 1, 5, 3, 7. "bruteforce" keeps
-    the lowest prim among equal t."""
+    ``method`` is any of the port's names (``METHODS``). "auto",
+    "auto_xla", "pallas" and "bruteforce" test every triangle up to
+    ``bruteforce_max_tris`` triangles; above that, and for the other
+    names, the clustered search (``trace/accel``) gives the same answer.
+    Among hits at exactly equal t all but "bruteforce" keep a best per
+    (prim mod 8) sublane and halve the eight towards the lower sublane
+    unless the upper one is strictly nearer, so the sublanes win in the
+    order 0, 4, 2, 6, 1, 5, 3, 7 (K1's rule). "bruteforce" keeps the
+    lowest prim among equal t."""
     global trace_calls, rays_traced
-    if method not in ("auto", "pallas", "bruteforce"):
+    if method not in METHODS:
         raise ValueError(f"the reference has no trace method {method!r}")
-    if method == "auto" and scene.num_tris > bruteforce_max_tris:
-        raise ValueError(f"the reference tests every triangle: {scene.num_tris} is over "
-                         f"bruteforce_max_tris {bruteforce_max_tris}")
     shape = origin.shape[:-1]
     o = origin.detach().reshape(-1, 3).to(torch.float32).contiguous()
     d = direction.detach().reshape(-1, 3).to(torch.float32).contiguous()
@@ -84,7 +92,11 @@ def trace_rays(
     lo = per_ray(range_lo, 0, torch.int32)
     hi = per_ray(range_hi, scene.num_tris, torch.int32)
     tie = "bruteforce" if method == "bruteforce" else "pallas"
-    t, prim, u, v = closest_hit(o, d, maxd, excl, lo, hi, pack_triangles(scene), tie)
+    if method in EVERY_TRIANGLE and scene.num_tris <= bruteforce_max_tris:
+        t, prim, u, v = closest_hit(o, d, maxd, excl, lo, hi, pack_triangles(scene), tie)
+    else:
+        t, prim, u, v = accel.closest_hit_clustered(o, d, maxd, excl, lo, hi,
+                                                    accel.clusters(scene), tie)
     rays_traced += R
     if dev.type == "cuda" and R:
         trace_calls += 1

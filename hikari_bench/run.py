@@ -111,7 +111,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device=None,
     if trace:
         ctx = Context(trace=win.trace, cell=cell, window=win)
         for m in cell.per_layer:
-            value = spec.metric_reader(m["name"])(ctx)
+            value = spec.metric_reader(m["name"], root)(ctx)
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     else:
@@ -142,7 +142,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device=None,
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
     ref = check.Reference(config, device)
-    limits = check.load_limits(workload)
+    limits = check.load_limits(workload, root)
     if kind == "view":
         numbers = check.judge_view(ref, cap, limits, first)
     else:

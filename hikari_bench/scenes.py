@@ -6,16 +6,33 @@ from __future__ import annotations
 
 import importlib
 
+REFERENCE = "hikari_bench.reference"
+
 
 def build(config: dict, package: str, device):
     """(scene, camera, settings) of ``config`` from ``package``'s own
     ``io.scenes`` and ``config``: the constructor named by ``scene``, the
     geometry named by ``geometry`` where the file gives one, then every
     key of ``settings`` (``upscale`` as ``{"mode", "ratio"}``, ``taa`` by
-    the enum's name)."""
+    the enum's name).
+
+    The reference takes its constructor from the module the file names
+    under ``reference_scene`` (``{"module", "fn"}``) where it names one,
+    and the geometry from that module too: a configuration whose scene the
+    reference's ``io.scenes`` lacks brings it in a file of its own, under
+    ``hikari_bench.reference``; a module elsewhere is refused, so that the
+    reference never builds its scene from the program's code."""
     scenes = importlib.import_module(f"{package}.io.scenes")
     cfg = importlib.import_module(f"{package}.config")
-    scene, camera, settings = scenes.CONFIGS[config["scene"]](device=device)
+    own = config.get("reference_scene") if package == REFERENCE else None
+    if own is None:
+        make = scenes.CONFIGS[config["scene"]]
+    else:
+        if not own["module"].startswith(f"{REFERENCE}."):
+            raise ValueError(f"reference_scene {own['module']!r} lies outside {REFERENCE}")
+        scenes = importlib.import_module(own["module"])
+        make = getattr(scenes, own["fn"])
+    scene, camera, settings = make(device=device)
     geometry = config.get("geometry")
     if geometry is not None:
         scene = getattr(scenes, geometry["fn"])(**geometry.get("kwargs", {}))

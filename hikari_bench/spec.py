@@ -1,8 +1,12 @@
 """Finding a cell's pieces by the names ``BENCHMARK.json`` gives them: its
 configuration (``configs/<config>.json``), its traffic mix
-(``traffic/<traffic>.json``) and the readers of its per-layer metrics
-(``metrics/<metric>.py``). A later cell or metric adds files and entries;
-nothing here names one."""
+(``traffic/<traffic>.json``), the readers of its per-layer metrics
+(``metrics/<metric>.py``) and, in ``check``, its limits
+(``limits/<workload>.json``). A later cell or metric adds files and
+entries; nothing here names one. A benchmark at another root (a test's)
+may hold its own traffic, limits and metric readers beside its
+configurations, under the same paths; what it lacks comes from this
+package."""
 
 from __future__ import annotations
 
@@ -55,6 +59,16 @@ def load_json(path: Path) -> dict:
     return json.loads(path.read_text())
 
 
+def locate(root: Path | None, *parts: str) -> Path:
+    """A file of this package (``parts`` under it) as the benchmark at
+    ``root`` holds it, where ``root`` has it, else this package's own."""
+    if root is not None:
+        path = Path(root).joinpath(HERE.relative_to(ROOT), *parts)
+        if path.is_file():
+            return path
+    return HERE.joinpath(*parts)
+
+
 def find_cell(name: str, root: Path = ROOT) -> Cell:
     """The cell ``name`` of the benchmark at ``root``, with its files read."""
     bench = load_benchmark(root)
@@ -66,7 +80,7 @@ def find_cell(name: str, root: Path = ROOT) -> Cell:
     if entry["config"] not in configs:
         raise SpecError(f"workload {name!r} names no configuration of the benchmark")
     config = load_json(root / configs[entry["config"]]["file"])
-    traffic = load_json(HERE / "traffic" / f"{entry['traffic']}.json")
+    traffic = load_json(locate(root, "traffic", f"{entry['traffic']}.json"))
     return Cell(
         name=name,
         entry=entry,
@@ -79,11 +93,12 @@ def find_cell(name: str, root: Path = ROOT) -> Cell:
     )
 
 
-def metric_reader(name: str):
-    """The ``read(ctx)`` function of ``metrics/<name>.py``."""
-    path = HERE / "metrics" / f"{name}.py"
+def metric_reader(name: str, root: Path | None = None):
+    """The ``read(ctx)`` function of ``metrics/<name>.py``, of the
+    benchmark at ``root`` where it has one, else of this package."""
+    path = locate(root, "metrics", f"{name}.py")
     if not path.is_file():
-        raise SpecError(f"no reader {path.relative_to(ROOT)} for the metric {name!r}")
+        raise SpecError(f"no reader {path} for the metric {name!r}")
     spec = importlib.util.spec_from_file_location(f"hikari_bench.metrics.{name}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)

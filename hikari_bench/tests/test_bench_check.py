@@ -9,10 +9,18 @@ frame has no batch mean, so half the batch is the trainer's fault.
 The train cell is left out of ``BENCHMARK.json`` while the port's train
 step gives non-finite gradients on some frames (PERF.md); its traffic,
 check and limits stay, and run here from a copy of the benchmark that
-names it."""
+names it.
+
+The copy also names a cell made of new files only, as a later PR adds
+one: a configuration of the port's procedural city at 8 x 8 blocks (3,290
+triangles, so the port walks tiles and the reference takes its clustered
+search) whose ``reference_scene`` names the reference's twin in
+``reference/io/city_twin.py``, with its own traffic and limits files in
+the copy."""
 
 import json
 import math
+from pathlib import Path
 
 import pytest
 
@@ -29,18 +37,41 @@ def shrink(config):
     return c
 
 
+CITY = {"name": "city8_view", "config": "city8_test", "traffic": "view_city8", "chips": 1,
+        "why": "a test"}
+# The city cell's configuration but for its settings, which are the
+# cornell cell's.
+CITY_CONFIG = json.loads((Path(__file__).parent / "city8_test.json").read_text())
+
+
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
-    """A benchmark that names the view cell and the train cell."""
+    """A benchmark that names the view cell, the train cell and a city
+    cell whose configuration, traffic and limits are files of the copy."""
     bench = spec.load_benchmark()
-    bench["workloads"].append(TRAIN)
+    bench["workloads"] += [TRAIN, CITY]
     bench["end_to_end"].append({"name": "train_rays_per_s", "unit": "rays/s", "better": "higher",
                                 "bound": 0.2, "source": "host_clock",
                                 "workloads": [TRAIN["name"]]})
+    for m in bench["end_to_end"]:
+        if "workloads" in m and "cornell1080_view" in m["workloads"]:
+            m["workloads"].append(CITY["name"])
     for c in bench["configs"]:
         c["file"] = str(spec.ROOT / c["file"])
+    bench["configs"].append({"name": CITY_CONFIG["name"], "source": CITY_CONFIG["source"],
+                             "file": "hikari_bench/configs/city8_test.json", "reduced": [],
+                             "why": "a test"})
     d = tmp_path_factory.mktemp("bench")
     (d / "BENCHMARK.json").write_text(json.dumps(bench))
+    own = d / "hikari_bench"
+    for sub in ("configs", "limits", "traffic"):
+        (own / sub).mkdir(parents=True)
+    cornell = spec.find_cell("cornell1080_view")
+    config = dict(CITY_CONFIG, settings=cornell.config["settings"])
+    (own / "configs" / "city8_test.json").write_text(json.dumps(config))
+    (own / "traffic" / "view_city8.json").write_text(json.dumps(cornell.traffic))
+    limits = {"limits": check.load_limits("cornell1080_view")}
+    (own / "limits" / "city8_view.json").write_text(json.dumps(limits))
     return d
 
 
@@ -50,8 +81,8 @@ def outcome(root, workload, factory=None):
     return result["correct"], {n.name: n.value for n in numbers}
 
 
-CELLS = ["cornell1080_view", "cornell1080_train"]
-KIND = {"cornell1080_view": "view", "cornell1080_train": "train"}
+CELLS = ["cornell1080_view", "cornell1080_train", "city8_view"]
+KIND = {"cornell1080_view": "view", "cornell1080_train": "train", "city8_view": "view"}
 
 
 @pytest.mark.parametrize("workload", CELLS)

@@ -3,9 +3,12 @@ or the JAX package (top-level names compared whole: the port's name starts
 with the JAX package's), and the reference loads nothing of the port."""
 
 import ast
+import json
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 from hikari_bench import run
 
@@ -57,7 +60,7 @@ def shrink(c):
 def _loaded(body: str):
     out = subprocess.run([sys.executable, "-c", PROBE.format(root=str(ROOT), body=body)],
                          capture_output=True, text=True, timeout=600, check=True)
-    return set(__import__("json").loads(out.stdout.strip().splitlines()[-1]))
+    return set(json.loads(out.stdout.strip().splitlines()[-1]))
 
 
 def test_a_run_loads_no_jax():
@@ -68,12 +71,32 @@ def test_a_run_loads_no_jax():
 
 
 def test_the_reference_loads_nothing_of_the_port():
+    """Every module of the reference, and a frame of the reference of
+    each configuration: the benchmark's and the CPU tests' city (a scene
+    over 2,048 triangles that ``reference_scene`` names)."""
+    city = json.loads((HERE / "tests" / "city8_test.json").read_text())
     body = SHRINK + (
         "from hikari_bench import check, spec\n"
         "import pkgutil, importlib, hikari_bench.reference as R\n"
         "for m in pkgutil.walk_packages(R.__path__, 'hikari_bench.reference.'):\n"
         "    importlib.import_module(m.name)\n"
-        "ref = check.Reference(shrink(spec.find_cell('cornell1080_view').config), 'cpu')\n"
-        "ref.render(ref.initial_state(3))\n")
+        "configs = [json.loads((spec.ROOT / c['file']).read_text())\n"
+        "           for c in spec.load_benchmark()['configs']]\n"
+        "settings = configs[0]['settings']\n"
+        f"configs.append(dict(json.loads({json.dumps(city)!r}), settings=settings))\n"
+        "for c in configs:\n"
+        "    ref = check.Reference(shrink(c), 'cpu')\n"
+        "    ref.render(ref.initial_state(3))\n")
     loaded = _loaded(body)
     assert not loaded & (set(run.FORBIDDEN) | {"hikari_tpu_torch"}), loaded
+
+
+def test_a_reference_scene_outside_the_reference_is_refused():
+    from hikari_bench import scenes, spec
+
+    config = json.loads((spec.ROOT / spec.load_benchmark()["configs"][0]["file"]).read_text())
+    for module in ("hikari_tpu_torch.io.scenes", "hikari_bench.tests.elsewhere",
+                   "hikari_bench.referenceX.io"):
+        own = dict(config, reference_scene={"module": module, "fn": "cornell_config"})
+        with pytest.raises(ValueError, match="outside"):
+            scenes.build(own, scenes.REFERENCE, "cpu")
