@@ -490,9 +490,12 @@ def soup_case(device):
 
 def walk_case(scene, o, d, maxd, early, excl, lo, hi):
     """The tile walk's arguments for flat rays, as ``trace_rays`` builds
-    them: the scene's cluster rule, rays sorted into tiles (the ray count
-    is a multiple of 512 here, so no padding), phase 1 and the sort.
-    Returns (walk arguments, phase-1 arguments)."""
+    them (``api._trace_tile_walk``): the scene's cluster rule, rays sorted
+    into tiles (the ray count is a multiple of 512 here, so no padding),
+    the clusters of ``tile_clusters`` (rows in the scene's ``tile_rows``
+    order, each cluster's prim range), each ray's margin, phase 1 and the
+    sort. Returns (walk arguments, phase-1 arguments: cmin, cmax, cvalid,
+    o, d, maxd, lo, hi, prange, num_prims, margin)."""
     from hikari_tpu_torch.trace import api
     from hikari_tpu_torch.trace import tile_walk as tw
 
@@ -501,12 +504,31 @@ def walk_case(scene, o, d, maxd, early, excl, lo, hi):
         raise ValueError("walk_case takes whole tiles")
     order = api.ray_sort_order(scene, o, d)
     o, d, maxd, early, excl, lo, hi = (x[order].contiguous() for x in (o, d, maxd, early, excl, lo, hi))
-    packed, cmin, cmax, cvalid = tw.pack_clusters(scene, cluster)
-    phase1 = (cmin, cmax, cvalid, o, d, maxd, lo, hi, cluster)
+    packed, cmin, cmax, cvalid, prange, cond = tw.tile_clusters(scene, cluster)
+    margin = tw.ray_margin(o, cond)
+    phase1 = (cmin, cmax, cvalid, o, d, maxd, lo, hi, prange, scene.num_tris, margin)
     sorted_, entry, maxent = tw.tile_entries(*phase1)
     walk = (packed, cmin, cmax, o, d, maxd, early, excl, lo, hi, sorted_, entry, maxent,
-            cluster, use_skip)
+            cluster, use_skip, prange, margin)
     return walk, phase1
+
+
+def shuffled_rows(scene, seed):
+    """``scene`` with its tile walk rows in a seeded random order of whole
+    instances (padding last): clusters whose rows are far out of prim
+    order and whose boxes span the scene."""
+    import dataclasses
+
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(scene.num_instances, generator=g)
+    first = scene.inst_prim_offset.cpu().long()[perm]
+    count = scene.inst_prim_count.cpu().long()[perm]
+    before = torch.cumsum(count, 0) - count
+    rows = torch.repeat_interleave(first - before, count) + torch.arange(int(count.sum()))
+    rows = torch.cat([rows, torch.arange(rows.numel(), scene.tri_n.shape[0])])
+    return dataclasses.replace(scene, tile_rows=rows.to(torch.int32).to(scene.tri_n.device))
 
 
 def city_random_rays(scene, device, R=65536, seed=11):
@@ -730,7 +752,8 @@ def render_advance(scene, cam, settings):
 
 def duplicate_rows(rows, dup, device):
     """(rows, 16) packed rows of one triangle in the z = 0 plane, valid only
-    at the prims ``dup`` (instance 0): an exact tie among those prims."""
+    at the prims ``dup`` (instance 0), each row carrying its prim id: an
+    exact tie among those prims."""
     import torch
 
     from hikari_tpu_torch.trace.intersect import precompute_triangles
@@ -739,8 +762,10 @@ def duplicate_rows(rows, dup, device):
     pre = precompute_triangles(tri.repeat(rows, 1, 1))
     valid = torch.zeros(rows)
     valid[list(dup)] = 1.0
+    ids = torch.arange(rows, dtype=torch.int32).view(torch.float32)[:, None]
     packed = torch.cat([pre["n"], pre["eu"], pre["ev"], pre["cn"][:, None], pre["cu"][:, None],
-                        pre["cv"][:, None], valid[:, None], torch.zeros((rows, 3))], dim=1)
+                        pre["cv"][:, None], valid[:, None], torch.zeros((rows, 1)), ids,
+                        torch.zeros((rows, 1))], dim=1)
     return packed.contiguous().to(device)
 
 
@@ -764,16 +789,17 @@ def tie_cases(device):
     """The JAX kernels' tie rule on the card. K1: a triangle duplicated at
     prims 1, 4 and 8 returns prim 8 under "pallas" (sublane 0 wins the
     halving) and prim 1 under "bruteforce". K2: duplicates at prims 1 and 4
-    of cluster 0 and 72 (row 8) of cluster 1 return prim 72: the eight
-    sublane bests carry across the clusters; duplicates at prims 8 and 16 of
-    cluster 0 and 64 (row 0) of cluster 1, all on sublane 0, return prim 8,
-    the first found, though the kernel's two halves of rows hold 16 and 64
-    (row groups 2 and 8) and 8 (group 1) apart. Each kernel equals its
-    twin."""
+    of cluster 0 and 72 (row 8) of cluster 1 return prim 72: the least key
+    (t, rank of prim mod 8, prim) across the clusters, K1's winner;
+    duplicates at prims 8 and 16 of cluster 0 and 64 (row 0) of cluster 1,
+    all of rank 0, return prim 8, the least, though the kernel's two halves
+    of rows hold 16 and 64 (row groups 2 and 8) and 8 (group 1) apart. Each
+    kernel equals its twin."""
     import torch
 
     from hikari_tpu_torch.trace import closest_hit as ch
     from hikari_tpu_torch.trace import tile_walk as tw
+    from hikari_tpu_torch.trace import tiled as ttiled
 
     o, d, maxd, early, excl, lo, hi = tie_rays(1024, 16, device)
     packed = duplicate_rows(16, (1, 4, 8), device)
@@ -792,9 +818,11 @@ def tie_cases(device):
     bmin = torch.tensor([[-1.0, -1.0, 0.0]] * 2, device=device)
     bmax = torch.tensor([[1.0, 1.0, 0.0]] * 2, device=device)
     cvalid = torch.ones(2, dtype=torch.bool, device=device)
-    order, entry, maxent = tw.tile_entries(bmin, bmax, cvalid, o, d, maxd, lo, hi, cluster)
+    prange, margin = ttiled.prim_ranges(2, cluster, device), torch.zeros_like(maxd)
+    order, entry, maxent = tw.tile_entries(bmin, bmax, cvalid, o, d, maxd, lo, hi, prange,
+                                           2 * cluster, margin)
     walk = (packed, bmin, bmax, o, d, maxd, early, excl, lo, hi, order, entry, maxent, cluster,
-            False)
+            False, prange, margin)
     for prims, want in (((1, 4, cluster + 8), cluster + 8), ((8, 16, cluster), 8)):
         walk = (duplicate_rows(2 * cluster, prims, device), *walk[1:])
         got, ref = tw.tile_walk(*walk), tw.tile_walk_reference(*walk)
@@ -2575,9 +2603,10 @@ def slab_sass(source, kernel, tests):
     return ipt, ab.issue_floor_ms(tests, ipt)
 
 
-def check_entries(label, cmin, cmax, cvalid, o, d, maxd, lo, hi, cluster):
+def check_entries(label, cmin, cmax, cvalid, o, d, maxd, lo, hi, prange, num_prims, margin):
     """[kernel] K2·p1 against its twin on the card, with the rays' prim
-    ranges and without: entries, ray_maxent and the stable sort of the
+    ranges (the clusters' ``prange``) and without, each ray growing every
+    box by its ``margin``: entries, ray_maxent and the stable sort of the
     entries bit for bit. Returns the largest |kernel - twin| (0)."""
     import torch
 
@@ -2587,10 +2616,10 @@ def check_entries(label, cmin, cmax, cvalid, o, d, maxd, lo, hi, cluster):
 
     inv = ttiled.safe_inv_dir(d)
     err = 0.0
-    for rng in ((lo, hi), (None, None)):
-        got = ttiled.tile_cluster_entries(cmin, cmax, cvalid, o, inv, maxd, *rng, cluster=cluster)
+    for rng in ((lo, hi, prange, num_prims), (None, None, None, 0)):
+        got = ttiled.tile_cluster_entries(cmin, cmax, cvalid, o, inv, maxd, *rng, margin)
         want = ttiled.tile_cluster_entries_reference(cmin, cmax, cvalid, o, inv, maxd, *rng,
-                                                     cluster=cluster)
+                                                     margin)
         torch.cuda.synchronize()
         ranges = "with" if rng[0] is not None else "without"
         err = max([err] + [float((g - w).abs().max()) for g, w in zip(got, want)])
@@ -2601,8 +2630,8 @@ def check_entries(label, cmin, cmax, cvalid, o, d, maxd, lo, hi, cluster):
                            torch.sort(want[0], dim=1, stable=True)[1]):
             raise AssertionError(f"K2·p1 {label}: the sorted order differs from the twin's")
         T, L = want[0].shape
-        log(f"[kernel] K2·p1 {label} {ranges} prim ranges, {T} tiles x {L} clusters of "
-            f"{cluster}: entries, ray_maxent and the sorted order bitwise equal to the twin; "
+        log(f"[kernel] K2·p1 {label} {ranges} prim ranges, {T} tiles x {L} clusters: "
+            f"entries, ray_maxent and the sorted order bitwise equal to the twin; "
             f"{int((want[0] < F32_MAX).sum())} entered (tile, cluster) entries "
             f"({int((want[0] == 0).sum())} at 0), {int((want[1] >= 0).sum())} rays enter a cluster")
     return err
@@ -2655,15 +2684,16 @@ def time_phases_city8(device):
     lo = torch.zeros((R,), dtype=torch.int32, device=device)
     hi = torch.full((R,), buffers.num_tris, dtype=torch.int32, device=device)
     cluster, _ = api.tile_cluster_rule(buffers.tri_n.shape[0])
-    _, cmin, cmax, cvalid = tw.pack_clusters(buffers, cluster)
+    _, cmin, cmax, cvalid, prange, cond = tw.tile_clusters(buffers, cluster)
+    margin = tw.ray_margin(o, cond)
     check_entries(f"[bench_trace] city-8 ({R} rays)", cmin, cmax, cvalid, o, d, maxd, lo, hi,
-                  cluster)
-    p1 = (cmin, cmax, cvalid, o, ttiled.safe_inv_dir(d), maxd, lo, hi)
+                  prange, buffers.num_tris, margin)
+    p1 = (cmin, cmax, cvalid, o, ttiled.safe_inv_dir(d), maxd, lo, hi, prange, buffers.num_tris,
+          margin)
     torch.cuda.synchronize()
-    p1_ms = cuda_time_ms(lambda: ttiled.tile_cluster_entries(*p1, cluster=cluster), 20)
-    p1_plain = cuda_time_ms(lambda: ttiled.tile_cluster_entries_reference(*p1, cluster=cluster), 2,
-                            warmup=1)
-    entries = ttiled.tile_cluster_entries(*p1, cluster=cluster)[0]
+    p1_ms = cuda_time_ms(lambda: ttiled.tile_cluster_entries(*p1), 20)
+    p1_plain = cuda_time_ms(lambda: ttiled.tile_cluster_entries_reference(*p1), 2, warmup=1)
+    entries = ttiled.tile_cluster_entries(*p1)[0]
     sort_ms = cuda_time_ms(lambda: torch.sort(entries, dim=1, stable=True), 20)
     L = cmin.shape[0]
     p1_bound, p1_by = entries_bound(R, L)
@@ -2832,24 +2862,48 @@ def main():
         torch.zeros((Rc,), dtype=torch.int32, device=dev),
         torch.full((Rc,), city.num_tris, dtype=torch.int32, device=dev),
     )
+    moved = int((city.tile_rows[:city.num_tris].cpu()
+                 != torch.arange(city.num_tris, dtype=torch.int32)).sum())
+    log(f"[kernel] the city's tile walk rows (TLAS leaf order): {moved} of {city.num_tris} "
+        f"rows out of prim order")
+    if not moved:
+        raise AssertionError("the city's tile walk rows are in prim order: no case of rows "
+                             "out of order")
     got_c = tw.tile_walk(*walk_c)
     err_c = compare("(c) city 512x512 primary", got_c, tw.tile_walk_reference(*walk_c))
+    # K2 on the main path returns K1's answer bit for bit (rays without an
+    # early distance): the keyed bests across clusters in any row order.
+    k1_c = ch.closest_hit(*walk_c[3:6], *walk_c[7:10], ch.pack_triangles(city), "pallas")
+    for name, a, b in zip(("t", "prim", "u", "v"), got_c[:4], k1_c):
+        if not torch.equal(a, b):
+            raise AssertionError(f"(c) city 512x512 primary: K2 {name} differs from K1's on "
+                                 f"{int((a != b).sum())} rays")
+    log(f"[kernel] (c) city 512x512 primary: K2 = K1 (pallas tie) bit for bit on t, prim, u, v "
+        f"of all {Rc} rays")
+    del k1_c
     walk_d, phase1_d = walk_case(city, *city_random_rays(city, dev))
     err_d = compare("(d) city random rays", tw.tile_walk(*walk_d), tw.tile_walk_reference(*walk_d))
+    # Rows in a random order of whole instances: boxes that span the city,
+    # each cluster's prims scattered over the whole range.
+    walk_s, phase1_s = walk_case(shuffled_rows(city, 5), *city_random_rays(city, dev))
+    err_s = compare("(d') city random rays, rows in a random instance order",
+                    tw.tile_walk(*walk_s), tw.tile_walk_reference(*walk_s))
     err_p1 = max(check_entries("(c) city 512x512 primary", *phase1_c),
                  check_entries("(d) city random rays", *phase1_d),
+                 check_entries("(d') rows in a random instance order", *phase1_s),
                  check_entries("(c) mixed NaN/clean warps, non-finite bounds",
-                               *slab_hazards(*phase1_c[:8]), phase1_c[8]))
+                               *slab_hazards(*phase1_c[:8]), *phase1_c[8:]))
+    del walk_s, phase1_s
     tested = got_c[4]
     torch.cuda.synchronize()
     tw_ms = cuda_time_ms(lambda: tw.tile_walk(*walk_c), 20)
     entries_ms = cuda_time_ms(lambda: tw.tile_entries(*phase1_c), 5)
     # K2·p1 alone, its twin and the sort, at (c).
-    p1_c = (*phase1_c[:4], ttiled.safe_inv_dir(phase1_c[4]), *phase1_c[5:8])
-    p1_ms = cuda_time_ms(lambda: ttiled.tile_cluster_entries(*p1_c, cluster=phase1_c[8]), 20)
-    p1_plain_ms = cuda_time_ms(
-        lambda: ttiled.tile_cluster_entries_reference(*p1_c, cluster=phase1_c[8]), 3, warmup=1)
-    entries_c = ttiled.tile_cluster_entries(*p1_c, cluster=phase1_c[8])[0]
+    p1_c = (*phase1_c[:4], ttiled.safe_inv_dir(phase1_c[4]), *phase1_c[5:])
+    p1_ms = cuda_time_ms(lambda: ttiled.tile_cluster_entries(*p1_c), 20)
+    p1_plain_ms = cuda_time_ms(lambda: ttiled.tile_cluster_entries_reference(*p1_c), 3,
+                               warmup=1)
+    entries_c = ttiled.tile_cluster_entries(*p1_c)[0]
     sort_ms = cuda_time_ms(lambda: torch.sort(entries_c, dim=1, stable=True), 20)
     p1_bound, p1_by = entries_bound(Rc, entries_c.shape[1])
     trace_ms = cuda_time_ms(
@@ -3112,7 +3166,7 @@ def main():
             "source": "hikari_tpu_torch/csrc/tile_walk.cu",
             "replaces": "hikari_tpu/trace/pallas_tiled.py:96",
             "launches": city_launches["tile_walk"] + dyn_k2,
-            "max_abs_err": max(err_c, err_d),
+            "max_abs_err": max(err_c, err_d, err_s),
             "ms": tw_ms,
             "plain_ms": tw_plain_ms,
             "bound_ms": tw_bound,

@@ -93,6 +93,13 @@ struct Best {
   int prim, rank;
 };
 
+// The ray's prim range [rlo, rhi) relative to the tile's first prim
+// `base`, clamped at 0 (so no subtraction overflows).
+__device__ __forceinline__ void set_tile_range(Ray& r, int rlo, int rhi, int base) {
+  r.lo = rlo > base ? rlo - base : 0;
+  r.hi = rhi > base ? rhi - base : 0;
+}
+
 // rank(prim mod 8): the 3-bit reversal of the sublane.
 __device__ __forceinline__ int sublane_rank(int prim) {
   return static_cast<int>(__brev(static_cast<unsigned>(prim)) >> 29);
@@ -101,8 +108,9 @@ __device__ __forceinline__ int sublane_rank(int prim) {
 // Packed row (trace/closest_hit.py pack_triangles):
 //   [0] nx ny nz eux  [1] euy euz evx evy  [2] evz cn cu cv
 //   [3] valid, inst (int32 bits), pad, pad
-// Row k of the tile (prim base + k) against the ray. kFullRange: the ray's
-// range [klo, khi) covers the row.
+// Row k of the tile (prim base + k) against the ray, whose range [lo, hi)
+// is held relative to the tile's first prim (set_tile_range). kFullRange:
+// the ray's range covers the row.
 template <bool kFullRange>
 __device__ __forceinline__ void test_pair(const float4* __restrict__ rows, int k, int base,
                                           const Ray& ray, int tie_or, Best& best) {
@@ -123,7 +131,7 @@ __device__ __forceinline__ void test_pair(const float4* __restrict__ rows, int k
   const float v = __fadd_rn(__fsub_rn(oev, c.w), __fmul_rn(t, dev));
   const bool ok = (adn >= kEps) && (t > kEps) && (u >= 0.f) && (v >= 0.f) &&
                   (__fadd_rn(u, v) <= 1.f) && (t <= best.t) && (inst != ray.excl) &&
-                  (kFullRange || ((k >= ray.klo) && (k < ray.khi)));
+                  (kFullRange || ((k >= ray.lo) && (k < ray.hi)));
   if (ok) {
     // t == best.t: the lesser rank wins; the first prim of a rank stays (a
     // hit's rank is >= 0, so a tie with "no hit yet", rank -1, never wins).
@@ -218,7 +226,7 @@ __global__ void __launch_bounds__(kThreads)
     const int kb = max(wlo - base, 0);
     const int ke = min(whi - base, n);
     if (kb < ke) {
-      hikari::set_range(ray, rlo, rhi, base);
+      set_tile_range(ray, rlo, rhi, base);
       if (__all_sync(0xffffffffu, dead || (rlo <= base + kb && rhi >= base + ke)))
         test_rows<true>(rows, kb, ke, base, ray, tie_or, best);
       else

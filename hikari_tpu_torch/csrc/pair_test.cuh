@@ -22,6 +22,12 @@
 // Only the bests' t live in registers. Their keys (which row group holds
 // each best) are written to shared memory on the rare replacement, which
 // keeps the kernels under 128 registers.
+//
+// Each packed row carries its triangle's prim id (the third word of its
+// last 16 bytes), so a kernel may test rows in any order: the ray's prim
+// range applies to that id. In the keyed form (the tile walk) a sublane
+// best is the least key (t, rank of prim mod 8, prim), whichever row order
+// and walk order brought its pairs, so the answer depends on neither.
 
 #pragma once
 
@@ -42,17 +48,20 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx, fl
 }
 
 // One ray's fixed part of the test: origin, direction, the excluded
-// instance and its prim range [lo, hi) relative to the tested cluster's
-// first prim, clamped at 0 (so no subtraction overflows).
+// instance and its prim range [lo, hi).
 struct Ray {
   float ox, oy, oz, dx, dy, dz;
-  int excl, klo, khi;
+  int excl, lo, hi;
 };
 
-__device__ __forceinline__ void set_range(Ray& r, int lo, int hi, int base) {
-  r.klo = lo > base ? lo - base : 0;
-  r.khi = hi > base ? hi - base : 0;
+// The key of a keyed best: the rank of prim mod 8 under the JAX kernels'
+// halving (its 3-bit reversal: the sublanes win in the order 0, 4, 2, 6,
+// 1, 5, 3, 7) above the prim (below 2^28), so that among equal t the least
+// key is K1's winner. -1 marks no best.
+__device__ __forceinline__ int prim_key(int prim) {
+  return static_cast<int>((__brev(static_cast<unsigned>(prim) & 7u) >> 29) << 28) | prim;
 }
+constexpr int kKeyPrimMask = (1 << 28) - 1;
 
 // The winner's u, v from its row: the pair test's operations on the same
 // values, so the same bits as when the test found it.
@@ -69,18 +78,21 @@ __device__ __forceinline__ void hit_uv(const Ray& r, float t, const float4* row,
 
 // Packed row (trace/closest_hit.py pack_triangles):
 //   [0] nx ny nz eux  [1] euy euz evx evy  [2] evz cn cu cv
-//   [3] valid, inst (int32 bits), pad, pad
+//   [3] valid, inst (int32 bits), prim (int32 bits), pad
 // Tests the row groups k0 = k_begin, k_begin + k_step, ... < k_end (groups
-// of 8 rows) against the thread's ray. Row k = k0 + s goes to sublane s,
-// and replaces that sublane's best only on a strict `t < best`: bt[s]
-// takes t and key[s * stride] (shared memory) takes key0 + k0, from which
-// the caller recovers the prim. kFullRange: the ray's range [klo, khi)
-// covers the rows.
-template <bool kFullRange>
+// of 8 rows) against the thread's ray; row k = k0 + s goes to sublane s.
+// Plain form: a pair replaces that sublane's best only on a strict
+// `t < best`: bt[s] takes t and key[s * stride] (shared memory) takes
+// key0 + k0, from which the caller recovers the prim. kKeyed: it replaces
+// the best on a less key (t, rank, prim): on `t < best`, or at an equal t
+// (the rare case, which reads the best's key) on a less prim_key; key[s *
+// stride] takes the prim's key and row[s * stride] the row key0 + k.
+// kFullRange: the ray's range covers every row's prim.
+template <bool kFullRange, bool kKeyed>
 __device__ __forceinline__ void test_rows(const float4* __restrict__ rows, int k_begin,
                                           int k_end, int k_step, int key0, const Ray& ray,
                                           float (&bt)[kSublanes], int* __restrict__ key,
-                                          int stride) {
+                                          int* __restrict__ row, int stride) {
 #pragma unroll 1
   for (int k0 = k_begin; k0 < k_end; k0 += k_step) {
 #pragma unroll
@@ -100,28 +112,44 @@ __device__ __forceinline__ void test_rows(const float4* __restrict__ rows, int k
       const float oev = dot3(ray.ox, ray.oy, ray.oz, b.z, b.w, c.x);
       const float u = __fadd_rn(__fsub_rn(oeu, c.z), __fmul_rn(t, deu));
       const float v = __fadd_rn(__fsub_rn(oev, c.w), __fmul_rn(t, dev));
-      const bool ok = (e.x > 0.5f) && (adn >= kEps) && (t > kEps) && (u >= 0.f) &&
-                      (v >= 0.f) && (__fadd_rn(u, v) <= 1.f) && (t < bt[s]) &&
-                      (__float_as_int(e.y) != ray.excl) &&
-                      (kFullRange || ((k >= ray.klo) && (k < ray.khi)));
-      if (ok) {
-        bt[s] = t;
-        key[s * stride] = key0 + k0;
+      const int prim = __float_as_int(e.z);
+      const bool hit = (e.x > 0.5f) && (adn >= kEps) && (t > kEps) && (u >= 0.f) &&
+                       (v >= 0.f) && (__fadd_rn(u, v) <= 1.f) &&
+                       (__float_as_int(e.y) != ray.excl) &&
+                       (kFullRange || ((prim >= ray.lo) && (prim < ray.hi)));
+      if constexpr (kKeyed) {
+        if (hit && t <= bt[s]) {
+          const int pk = prim_key(prim);
+          const int old = key[s * stride];
+          if (t < bt[s] || (old >= 0 && pk < old)) {
+            bt[s] = t;
+            key[s * stride] = pk;
+            row[s * stride] = key0 + k;
+          }
+        }
+      } else {
+        if (hit && t < bt[s]) {
+          bt[s] = t;
+          key[s * stride] = key0 + k0;
+        }
       }
     }
   }
 }
 
 // test_rows, without the range compares when no ray of the warp needs
-// them. Every lane of the warp must call it with the same rows.
+// them: every ray's range covers [c_lo, c_hi), which holds every row's
+// prim. Every lane of the warp must call it with the same rows.
+template <bool kKeyed>
 __device__ __forceinline__ void test_cluster(const float4* __restrict__ rows, int k_begin,
                                              int k_end, int k_step, int key0, const Ray& ray,
                                              float (&bt)[kSublanes], int* __restrict__ key,
-                                             int stride) {
-  if (__all_sync(0xffffffffu, (ray.klo == 0) && (ray.khi >= k_end)))
-    test_rows<true>(rows, k_begin, k_end, k_step, key0, ray, bt, key, stride);
+                                             int* __restrict__ row, int stride, int c_lo,
+                                             int c_hi) {
+  if (__all_sync(0xffffffffu, (ray.lo <= c_lo) && (ray.hi >= c_hi)))
+    test_rows<true, kKeyed>(rows, k_begin, k_end, k_step, key0, ray, bt, key, row, stride);
   else
-    test_rows<false>(rows, k_begin, k_end, k_step, key0, ray, bt, key, stride);
+    test_rows<false, kKeyed>(rows, k_begin, k_end, k_step, key0, ray, bt, key, row, stride);
 }
 
 // The JAX kernels' final step: halve 8 -> 4 -> 2 -> 1, taking the upper

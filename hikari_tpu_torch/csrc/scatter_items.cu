@@ -12,7 +12,8 @@
 // trace/scatter.py): meta (NB,2) i32 — per block its cluster id and valid
 // item count —; the item fields (11, NB*128) f32, rows o(3) d(3) maxd, then
 // excl, lo, hi as int32 bits, then valid (0/1); the packed rows
-// (L*128, 16) of trace/closest_hit.py pack_triangles in cluster order.
+// (L*128, 16) of trace/closest_hit.py pack_triangles in cluster order, each
+// carrying its prim id, which the range test reads.
 // Besides, `ranges` (G,4) i32 (trace/scatter.py run_ranges): the item
 // blocks of persistent block g are [w0, w1) then [t0, t1).
 // Outputs per item t, prim, u, v. A block with count 0 writes misses:
@@ -159,9 +160,8 @@ __global__ void __launch_bounds__(kThreads)
 
     const int base = cid * kCluster;
     const float(&f)[kFields][kBlockItems] = stage[cur].f;
-    Ray ray = {f[0][q], f[1][q], f[2][q], f[3][q], f[4][q], f[5][q], __float_as_int(f[7][q]),
-               0, 0};
-    hikari::set_range(ray, __float_as_int(f[8][q]), __float_as_int(f[9][q]), base);
+    const Ray ray = {f[0][q], f[1][q], f[2][q], f[3][q], f[4][q], f[5][q],
+                     __float_as_int(f[7][q]), __float_as_int(f[8][q]), __float_as_int(f[9][q])};
     // The bests start at maxd (already clamped to F32_MAX), or at 0 for an
     // item that is not valid: `t < best` then carries `t < maxd` and
     // `valid`, since every hit has t > eps > 0.
@@ -172,8 +172,8 @@ __global__ void __launch_bounds__(kThreads)
       bt[k] = init_t;
       key[k][q] = -1;
     }
-    hikari::test_cluster(rows[rb], 0, kCluster, kSublanes, base, ray, bt, &key[0][q],
-                         kBlockItems);
+    hikari::test_cluster<false>(rows[rb], 0, kCluster, kSublanes, base, ray, bt, &key[0][q],
+                                nullptr, kBlockItems, base, base + kCluster);
     int bp[kSublanes];  // sublane k's key is its row group's first prim
 #pragma unroll
     for (int k = 0; k < kSublanes; ++k) bp[k] = key[k][q] >= 0 ? key[k][q] + k : -1;

@@ -100,12 +100,12 @@ __global__ void __launch_bounds__(kChunk, 4)
   const int ray = blockIdx.x * kChunk + threadIdx.x;
   // The last chunk may be ragged: a ray past the end is clean, takes every
   // range and enters nothing (max distance -inf).
-  SlabRay<int> r = {0.f, 0.f, 0.f, 1.f, 1.f, 1.f, -__int_as_float(0x7f800000), INT32_MIN,
-                    INT32_MAX};
+  SlabRay<int> r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 1.f, 1.f, 1.f, -__int_as_float(0x7f800000),
+                    INT32_MIN, INT32_MAX};
   if (ray < num_rays) {
-    r.ox = o[3 * ray];
-    r.oy = o[3 * ray + 1];
-    r.oz = o[3 * ray + 2];
+    r.lx = r.hx = o[3 * ray];
+    r.ly = r.hy = o[3 * ray + 1];
+    r.lz = r.hz = o[3 * ray + 2];
     r.ix = inv[3 * ray];
     r.iy = inv[3 * ray + 1];
     r.iz = inv[3 * ray + 2];
@@ -113,7 +113,7 @@ __global__ void __launch_bounds__(kChunk, 4)
     r.lo = lo[ray];
     r.hi = hi[ray];
   }
-  const int mode = hikari_slab::warp_mode(r, num_clusters, kCluster);
+  const int mode = hikari_slab::warp_mode(r, kCluster, (num_clusters - 1) * kCluster);
   const bool lane0 = lane == 0;
   const int mask_rows = (num_rays + 31) / 32;
   const int row = blockIdx.x * kWarps + warp;  // this warp's row of masks
@@ -188,7 +188,7 @@ extern "C" int hikari_scatter_plan_count(const float* o, const float* inv, const
   if (num_rays <= 0 || num_clusters <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float4* t = reinterpret_cast<float4*>(table);
-  hikari_slab::launch_table<int>(cmin, cmax, cvalid, num_clusters, kCluster, t, s);
+  hikari_slab::launch_table<int>(cmin, cmax, cvalid, nullptr, num_clusters, kCluster, t, s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   *launched = 1;

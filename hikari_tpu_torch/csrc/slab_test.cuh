@@ -47,8 +47,10 @@
 // products are equal in value, and a zero's sign reaches no result).
 //
 // A cluster's validity and its prim range ride in its staged row: the pair
-// is in range when lo_c < hi and hi_c > lo (the twins' overlap test of
-// [c*cluster, (c+1)*cluster) with the ray's [lo, hi)); an invalid cluster
+// is in range when lo_c < hi and hi_c > lo (the twins' overlap test of the
+// cluster's own [lo, hi) from `prange` in phase 1, where the rows may come
+// in any order, or of [c*cluster, (c+1)*cluster) in phase A, whose clusters
+// are in prim order, with the ray's [lo, hi)); an invalid cluster
 // stages lo_c = the type's largest value and hi_c = its least, so neither
 // compare holds for any ray. Phase 1 compares in f32 (the JAX package's f32
 // prim range, exact below 2^24 prims; a ray without a range takes (-inf,
@@ -56,8 +58,10 @@
 // < 2^31). An invalid cluster also stages +inf for all six bounds, which a
 // clean ray never enters (on each axis a = b = +-inf: tlo = +inf, which no
 // max distance exceeds, or thi = -inf, below any entry). So a warp whose
-// rays all take every cluster's range (lo < cluster and hi > (L - 1) *
-// cluster: one more vote) skips the range compares too.
+// rays all take every cluster's range (lo < full_lo and hi > full_hi, which
+// the caller sets so that they imply it: (1, num_prims - 1) in phase 1,
+// (cluster, (L - 1) * cluster) in phase A; one more vote) skips the range
+// compares too.
 //
 // Staging: the wrapper's call first builds the (L, 8) f32 table once
 // (slab_table_kernel, one thread a cluster): (lo x, lo y, lo z, hi x) and
@@ -105,8 +109,8 @@ struct RangeTraits<int> {
 template <typename RangeT>
 __global__ void __launch_bounds__(kTableThreads)
     slab_table_kernel(const float* __restrict__ cmin, const float* __restrict__ cmax,
-                      const unsigned char* __restrict__ cvalid, int num_clusters, int cluster,
-                      float4* __restrict__ table) {
+                      const unsigned char* __restrict__ cvalid, const int* __restrict__ prange,
+                      int num_clusters, int cluster, float4* __restrict__ table) {
   using Tr = RangeTraits<RangeT>;
   const int c = blockIdx.x * kTableThreads + threadIdx.x;
   if (c >= num_clusters) return;
@@ -124,7 +128,11 @@ __global__ void __launch_bounds__(kTableThreads)
     const float hx = fmaxf(v[0], v[3]), hy = fmaxf(v[1], v[4]), hz = fmaxf(v[2], v[5]);
     table[2 * static_cast<size_t>(c)] = make_float4(lx, ly, lz, hx);
     table[2 * static_cast<size_t>(c) + 1] =
-        make_float4(hy, hz, Tr::bits(Tr::of(c * cluster)), Tr::bits(Tr::of(c * cluster + cluster)));
+        prange != nullptr
+            ? make_float4(hy, hz, Tr::bits(Tr::of(prange[2 * static_cast<size_t>(c)])),
+                          Tr::bits(Tr::of(prange[2 * static_cast<size_t>(c) + 1])))
+            : make_float4(hy, hz, Tr::bits(Tr::of(c * cluster)),
+                          Tr::bits(Tr::of(c * cluster + cluster)));
   } else {
     const float inf = __int_as_float(0x7f800000);
     table[2 * static_cast<size_t>(c)] = make_float4(inf, inf, inf, inf);
@@ -135,31 +143,40 @@ __global__ void __launch_bounds__(kTableThreads)
 
 template <typename RangeT>
 inline void launch_table(const float* cmin, const float* cmax, const unsigned char* cvalid,
-                         int num_clusters, int cluster, float4* table, cudaStream_t s) {
+                         const int* prange, int num_clusters, int cluster, float4* table,
+                         cudaStream_t s) {
   slab_table_kernel<RangeT><<<(num_clusters + kTableThreads - 1) / kTableThreads, kTableThreads,
-                              0, s>>>(cmin, cmax, cvalid, num_clusters, cluster, table);
+                              0, s>>>(cmin, cmax, cvalid, prange, num_clusters, cluster, table);
 }
 
-// One ray's part of the test.
+// One ray's part of the test. The lower bounds are taken from the origin
+// (lx, ly, lz) and the upper ones from (hx, hy, hz): both the ray's origin,
+// or o + m and o - m where the ray grows every box by a margin m (phase 1
+// of the tile walk: trace/tile_walk.py ray_margin), so that
+// a = (lo - (o + m)) * inv and b = (hi - (o - m)) * inv, lo and hi the
+// staged bounds in order (a box with cmin > cmax on an axis grows from
+// them: the twin takes them in order too). As o + m >= o - m, the rounded
+// a <= b still holds where inv > 0 and lo <= hi.
 template <typename RangeT>
 struct SlabRay {
-  float ox, oy, oz, ix, iy, iz, maxd;
+  float lx, ly, lz, hx, hy, hz, ix, iy, iz, maxd;
   RangeT lo, hi;
 };
 
 // Whether no product of this ray with a staged cluster can be NaN.
 template <typename RangeT>
 __device__ __forceinline__ bool clean(const SlabRay<RangeT>& r) {
-  return isfinite(r.ox) & isfinite(r.oy) & isfinite(r.oz) & isfinite(r.ix) & isfinite(r.iy) &
-         isfinite(r.iz) & (r.ix != 0.f) & (r.iy != 0.f) & (r.iz != 0.f);
+  return isfinite(r.lx) & isfinite(r.ly) & isfinite(r.lz) & isfinite(r.hx) & isfinite(r.hy) &
+         isfinite(r.hz) & isfinite(r.ix) & isfinite(r.iy) & isfinite(r.iz) & (r.ix != 0.f) &
+         (r.iy != 0.f) & (r.iz != 0.f);
 }
 
 // Whether the ray's range takes every cluster's.
 template <typename RangeT>
-__device__ __forceinline__ bool full_range(const SlabRay<RangeT>& r, int num_clusters,
-                                           int cluster) {
+__device__ __forceinline__ bool full_range(const SlabRay<RangeT>& r, int full_lo,
+                                           int full_hi) {
   using Tr = RangeTraits<RangeT>;
-  return (r.lo < Tr::of(cluster)) & (r.hi > Tr::of((num_clusters - 1) * cluster));
+  return (r.lo < Tr::of(full_lo)) & (r.hi > Tr::of(full_hi));
 }
 
 // The warp's form of the test: modes 0-7 for clean rays that take every
@@ -169,10 +186,9 @@ __device__ __forceinline__ bool full_range(const SlabRay<RangeT>& r, int num_clu
 constexpr int kCleanFull = 8, kClean = 9, kAny = 10;
 
 template <typename RangeT>
-__device__ __forceinline__ int warp_mode(const SlabRay<RangeT>& r, int num_clusters,
-                                         int cluster) {
+__device__ __forceinline__ int warp_mode(const SlabRay<RangeT>& r, int full_lo, int full_hi) {
   if (!__all_sync(kFull, clean(r))) return kAny;
-  if (!__all_sync(kFull, full_range(r, num_clusters, cluster))) return kClean;
+  if (!__all_sync(kFull, full_range(r, full_lo, full_hi))) return kClean;
   const int oct = (r.ix < 0.f) | ((r.iy < 0.f) << 1) | ((r.iz < 0.f) << 2);
   const int oct0 = __shfl_sync(kFull, oct, 0);
   return __all_sync(kFull, oct == oct0) ? oct0 : kCleanFull;
@@ -195,22 +211,22 @@ __device__ __forceinline__ void slab(const float4& a, const float4& b, const Sla
                                      float& tlo, float& thi, bool& ok) {
   if constexpr (kMode < kCleanFull) {
     constexpr bool sx = kMode & 1, sy = kMode & 2, sz = kMode & 4;
-    const float nx = __fmul_rn(__fsub_rn(sx ? a.w : a.x, r.ox), r.ix);
-    const float fx = __fmul_rn(__fsub_rn(sx ? a.x : a.w, r.ox), r.ix);
-    const float ny = __fmul_rn(__fsub_rn(sy ? b.x : a.y, r.oy), r.iy);
-    const float fy = __fmul_rn(__fsub_rn(sy ? a.y : b.x, r.oy), r.iy);
-    const float nz = __fmul_rn(__fsub_rn(sz ? b.y : a.z, r.oz), r.iz);
-    const float fz = __fmul_rn(__fsub_rn(sz ? a.z : b.y, r.oz), r.iz);
+    const float nx = __fmul_rn(sx ? __fsub_rn(a.w, r.hx) : __fsub_rn(a.x, r.lx), r.ix);
+    const float fx = __fmul_rn(sx ? __fsub_rn(a.x, r.lx) : __fsub_rn(a.w, r.hx), r.ix);
+    const float ny = __fmul_rn(sy ? __fsub_rn(b.x, r.hy) : __fsub_rn(a.y, r.ly), r.iy);
+    const float fy = __fmul_rn(sy ? __fsub_rn(a.y, r.ly) : __fsub_rn(b.x, r.hy), r.iy);
+    const float nz = __fmul_rn(sz ? __fsub_rn(b.y, r.hz) : __fsub_rn(a.z, r.lz), r.iz);
+    const float fz = __fmul_rn(sz ? __fsub_rn(a.z, r.lz) : __fsub_rn(b.y, r.hz), r.iz);
     tlo = fmaxf(fmaxf(nx, ny), nz);
     thi = fminf(fminf(fx, fy), fz);
     ok = true;
   } else {
-    const float ax = __fmul_rn(__fsub_rn(a.x, r.ox), r.ix);
-    const float bx = __fmul_rn(__fsub_rn(a.w, r.ox), r.ix);
-    const float ay = __fmul_rn(__fsub_rn(a.y, r.oy), r.iy);
-    const float by = __fmul_rn(__fsub_rn(b.x, r.oy), r.iy);
-    const float az = __fmul_rn(__fsub_rn(a.z, r.oz), r.iz);
-    const float bz = __fmul_rn(__fsub_rn(b.y, r.oz), r.iz);
+    const float ax = __fmul_rn(__fsub_rn(a.x, r.lx), r.ix);
+    const float bx = __fmul_rn(__fsub_rn(a.w, r.hx), r.ix);
+    const float ay = __fmul_rn(__fsub_rn(a.y, r.ly), r.iy);
+    const float by = __fmul_rn(__fsub_rn(b.x, r.hy), r.iy);
+    const float az = __fmul_rn(__fsub_rn(a.z, r.lz), r.iz);
+    const float bz = __fmul_rn(__fsub_rn(b.y, r.hz), r.iz);
     tlo = fmaxf(fmaxf(fminf(ax, bx), fminf(ay, by)), fminf(az, bz));
     thi = fminf(fminf(fmaxf(ax, bx), fmaxf(ay, by)), fmaxf(az, bz));
     ok = true;

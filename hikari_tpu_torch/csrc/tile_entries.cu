@@ -12,8 +12,10 @@
 //
 // Inputs (the contract of the plain twin `tile_cluster_entries_reference`
 // in trace/tiled.py): o, inv (R,3) f32 (inv = safe_inv_dir(d)); maxd (R,)
-// f32; with a prim range lo, hi (R,) i32; cmin, cmax (L,3) f32; cvalid
-// (L,) bool; R = T * 512. Outputs: entries (T,L) f32, F32_MAX where no ray
+// f32; with a prim range lo, hi (R,) i32 and each cluster's prim range
+// prange (L,2) i32, within [0, num_prims); cmin, cmax (L,3) f32; cvalid
+// (L,) bool; optionally margin (R,) f32, by which each ray grows every box
+// (else 0); R = T * 512. Outputs: entries (T,L) f32, F32_MAX where no ray
 // of the tile enters the cluster; ray_maxent (R,) f32, -1 where the ray
 // enters none. The slab test, the staged table and the NaN and signed-zero
 // rules are in slab_test.cuh. Entries that enter are never NaN, so the min
@@ -83,9 +85,10 @@ __device__ __forceinline__ void entry_stage(const float4* rows, int nk, const Sl
 
 __global__ void __launch_bounds__(kTileRays)
     tile_entries_kernel(const float* __restrict__ o, const float* __restrict__ inv,
-                        const float* __restrict__ maxd, const int* __restrict__ lo,
+                        const float* __restrict__ margin, const float* __restrict__ maxd,
+                        const int* __restrict__ lo,
                         const int* __restrict__ hi, const float4* __restrict__ table,
-                        int num_clusters, int cluster, float* __restrict__ entries,
+                        int num_clusters, int full_lo, int full_hi, float* __restrict__ entries,
                         float* __restrict__ ray_maxent) {
   __shared__ __align__(16) float4 rows[2][2 * kStage];
   __shared__ unsigned wmin[2][kWarps][kStage];
@@ -93,9 +96,18 @@ __global__ void __launch_bounds__(kTileRays)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t ray = static_cast<size_t>(blockIdx.x) * kTileRays + threadIdx.x;
   SlabRay<float> r;
-  r.ox = o[3 * ray];
-  r.oy = o[3 * ray + 1];
-  r.oz = o[3 * ray + 2];
+  r.lx = r.hx = o[3 * ray];
+  r.ly = r.hy = o[3 * ray + 1];
+  r.lz = r.hz = o[3 * ray + 2];
+  if (margin != nullptr) {  // o + m for the lower bounds, o - m for the upper
+    const float m = margin[ray];
+    r.lx = __fadd_rn(r.hx, m);
+    r.ly = __fadd_rn(r.hy, m);
+    r.lz = __fadd_rn(r.hz, m);
+    r.hx = __fsub_rn(r.hx, m);
+    r.hy = __fsub_rn(r.hy, m);
+    r.hz = __fsub_rn(r.hz, m);
+  }
   r.ix = inv[3 * ray];
   r.iy = inv[3 * ray + 1];
   r.iz = inv[3 * ray + 2];
@@ -107,7 +119,7 @@ __global__ void __launch_bounds__(kTileRays)
     r.lo = -__int_as_float(0x7f800000);
     r.hi = __int_as_float(0x7f800000);
   }
-  const int mode = hikari_slab::warp_mode(r, num_clusters, cluster);
+  const int mode = hikari_slab::warp_mode(r, full_lo, full_hi);
   const bool lane0 = lane == 0;
   float maxent = -1.f;
   float* out = entries + static_cast<size_t>(blockIdx.x) * num_clusters;
@@ -145,23 +157,29 @@ __global__ void __launch_bounds__(kTileRays)
 }  // namespace
 
 // The staged table (L, 8) f32 into `table`, then the entries (T, L) and
-// the max entries (R,), one block a tile. lo and hi may be null (no range).
+// the max entries (R,), one block a tile. lo, hi and prange are null
+// together (no range: every ray takes (-inf, inf), which holds the staged
+// [0, 0) of every cluster), and margin may be (no margin). A warp whose rays
+// all have lo < 1 and hi > num_prims - 1 takes every cluster's range.
 // `*launched` gets the kernels launched (2, or 0 when there is no work).
-extern "C" int hikari_tile_entries(const float* o, const float* inv, const float* maxd,
+extern "C" int hikari_tile_entries(const float* o, const float* inv, const float* margin,
+                                   const float* maxd,
                                    const int* lo, const int* hi, const float* cmin,
-                                   const float* cmax, const unsigned char* cvalid, int num_tiles,
-                                   int num_clusters, int cluster, float* table, float* entries,
+                                   const float* cmax, const unsigned char* cvalid,
+                                   const int* prange, int num_tiles, int num_clusters,
+                                   int num_prims, float* table, float* entries,
                                    float* ray_maxent, void* stream, int* launched) {
   *launched = 0;
   if (num_tiles <= 0 || num_clusters <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float4* t = reinterpret_cast<float4*>(table);
-  hikari_slab::launch_table<float>(cmin, cmax, cvalid, num_clusters, cluster, t, s);
+  hikari_slab::launch_table<float>(cmin, cmax, cvalid, prange, num_clusters, 0, t, s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   *launched = 1;
-  tile_entries_kernel<<<num_tiles, kTileRays, 0, s>>>(o, inv, maxd, lo, hi, t, num_clusters,
-                                                       cluster, entries, ray_maxent);
+  tile_entries_kernel<<<num_tiles, kTileRays, 0, s>>>(o, inv, margin, maxd, lo, hi, t,
+                                                       num_clusters, 1, num_prims - 1, entries,
+                                                       ray_maxent);
   err = cudaGetLastError();
   if (err == cudaSuccess) *launched = 2;
   return static_cast<int>(err);

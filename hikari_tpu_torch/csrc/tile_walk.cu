@@ -15,16 +15,20 @@
 // i32; per tile the cluster ids `order` (T,L) i32 in ascending phase-1
 // entry distance and those distances `entry` (T,L) f32; the packed rows
 // (L*cluster, 16) of trace/closest_hit.py pack_triangles in cluster order,
-// and the cluster AABBs cmin, cmax (L,3). Block b walks tile b.
+// each carrying its prim id, in any order of prims (trace/tile_walk.py
+// tile_clusters); the cluster AABBs cmin, cmax (L,3), each cluster's
+// prims [lo, hi) `prange` (L,2) i32 (a range that holds the prim of each
+// valid row) and each ray's margin `margin` (R,) f32. Block b walks tile b.
 //
 // Walk of one tile (pallas_tiled.py:224-302). It starts unless entry[0] is
 // F32_MAX. At step j, for cluster c = order[j]:
-//   1. with the skip on, c is tested only if some ray enters c's AABB
-//      before its CURRENT best (the least of its eight sublane bests; slab
-//      test with the signed-epsilon inverse direction);
+//   1. with the skip on, c is tested only if some ray enters c's AABB,
+//      grown by the ray's margin (as phase 1 grew it; 0 for the JAX
+//      package's unmargined boxes), before its CURRENT best (the least of its eight sublane
+//      bests; slab test with the signed-epsilon inverse direction);
 //   2. dense-test the cluster's triangles against every ray of the tile:
-//      K1's pair test with t < best, t < maxd, inst != excl and
-//      lo <= prim < hi;
+//      K1's pair test with t <= best, t < maxd, inst != excl and
+//      lo <= prim < hi, for the row's carried prim;
 //   3. retire the tile when j+1 == L, or entry[j+1] is F32_MAX, or no ray
 //      is still open: a ray is open when it is not done early (some
 //      sublane holds a hit nearer than early), its least best >
@@ -32,16 +36,18 @@
 // Outputs per ray t, prim, u, v (a miss: t = min(maxd, F32_MAX), prim -1,
 // u = v = 0) and per tile the number of clusters tested.
 //
-// Tie rule, the JAX kernel's (pallas_tiled.py:161-216, :309-326): each ray
-// keeps eight running bests over the whole walk, one per (row mod 8)
-// sublane of a cluster (clusters are multiples of 8 rows, so the sublane is
-// also prim mod 8), each replaced only on a strict `t < best`. At the end
-// the eight are halved 8 -> 4 -> 2 -> 1, taking the upper half only when
-// it is strictly nearer: among equal t the sublanes win in the order
-// 0, 4, 2, 6, 1, 5, 3, 7, whichever clusters the triangles lie in.
-// Only t and prim are kept per sublane; the winner's u, v are recomputed
-// from its row at the end (the same operations on the same values).
-//
+// Tie rule: each ray keeps eight running bests over the whole walk, one
+// per (row mod 8) sublane of a cluster, each the least key (t, rank of
+// prim mod 8, prim) of the pairs it took (pair_test.cuh, keyed form): a
+// pair replaces a best on a nearer t, or on an equal t and a less key. The
+// end takes the least key of the eight. The rank is the sublane's place in
+// the JAX kernels' halving (pallas_tiled.py:309-326), so among equal t the
+// winner is K1's, whichever rows and clusters the triangles lie in and
+// whatever order the walk meets them. Only t and the key are kept per
+// sublane (the winner's row on the rare replacement, in shared memory);
+// the winner's u, v are recomputed from its row at the end (the same
+// operations on the same values).
+
 // What bounds it on this card: issue slots per ray/triangle pair under
 // -fmad=false (pair_test.cuh), times the tested clusters x 512 x cluster
 // pairs, spread over 132 SMs. The longest tile tests ~2.3x the mean of
@@ -52,11 +58,10 @@
 //     of 8 whose index is p (mod kParts). So a tile's walk runs on 32 warps
 //     with one ray a thread (2 rays a thread in one part of 256 threads, or
 //     in 4 parts, measured slower on the H100: PERF.md);
-//   - each part keeps its own eight sublane bests per ray. The sublane rule
-//     picks the first minimum in walk order, so each best carries its key,
-//     step x cluster + first row of its group, and the parts merge at the
-//     end: the nearer t, and among equal t the smaller key. The votes take
-//     the parts' merged least best and done-early flag every step;
+//   - each part keeps its own eight sublane bests per ray, each with its
+//     key and row, and the parts merge at the end: the nearer t, and among
+//     equal t the less key. The votes take the parts' merged least best and
+//     done-early flag every step;
 //   - the cluster rows are double-buffered: while cluster order[j] is
 //     tested, every thread's cp.async brings its share of order[j+1] into
 //     the other buffer, unconditionally (a cluster that the skip then drops
@@ -119,8 +124,12 @@ struct Shared {
   // Per-ray values read once a step, not once a pair.
   float maxd[kTileRays], early[kTileRays], maxent[kTileRays];
   float ix[kTileRays], iy[kTileRays], iz[kTileRays];
-  int lo[kTileRays], hi[kTileRays];
+  // The origin the skip test takes for the boxes' lower and upper bounds:
+  // o + m and o - m, for the ray's margin m.
+  float lx[kTileRays], ly[kTileRays], lz[kTileRays];
+  float hx[kTileRays], hy[kTileRays], hz[kTileRays];
   int key[kParts][kSublanes][kTileRays];  // per part: each sublane best's key, -1 if none
+  int row[kParts][kSublanes][kTileRays];  // and the row it came from
   // Parts 1..: the least best and the done-early flag per ray, every step,
   // and the bests, for the merge at the end.
   float part_least[kParts - 1][kTileRays];
@@ -138,18 +147,18 @@ __device__ __forceinline__ bool done_early(const float (&bt)[kSublanes], float i
   return done;
 }
 
-// Whether ray q (least best `best`) enters the AABB of cluster `cid` before
-// its best and its max distance (the skip test).
-__device__ __forceinline__ bool enters(const Shared& sh, int q, const Ray& r, float best,
-                                       const float* cmin, const float* cmax, int cid) {
+// Whether ray q (least best `best`) enters the AABB of cluster `cid`, grown
+// by the ray's margin, before its best and its max distance (the skip test).
+__device__ __forceinline__ bool enters(const Shared& sh, int q, float best, const float* cmin,
+                                       const float* cmax, int cid) {
   const float* bmin = cmin + 3 * cid;
   const float* bmax = cmax + 3 * cid;
-  const float ax = __fmul_rn(__fsub_rn(bmin[0], r.ox), sh.ix[q]);
-  const float bx = __fmul_rn(__fsub_rn(bmax[0], r.ox), sh.ix[q]);
-  const float ay = __fmul_rn(__fsub_rn(bmin[1], r.oy), sh.iy[q]);
-  const float by = __fmul_rn(__fsub_rn(bmax[1], r.oy), sh.iy[q]);
-  const float az = __fmul_rn(__fsub_rn(bmin[2], r.oz), sh.iz[q]);
-  const float bz = __fmul_rn(__fsub_rn(bmax[2], r.oz), sh.iz[q]);
+  const float ax = __fmul_rn(__fsub_rn(bmin[0], sh.lx[q]), sh.ix[q]);
+  const float bx = __fmul_rn(__fsub_rn(bmax[0], sh.hx[q]), sh.ix[q]);
+  const float ay = __fmul_rn(__fsub_rn(bmin[1], sh.ly[q]), sh.iy[q]);
+  const float by = __fmul_rn(__fsub_rn(bmax[1], sh.hy[q]), sh.iy[q]);
+  const float az = __fmul_rn(__fsub_rn(bmin[2], sh.lz[q]), sh.iz[q]);
+  const float bz = __fmul_rn(__fsub_rn(bmax[2], sh.hz[q]), sh.iz[q]);
   const float tlo = nan_max(nan_max(nan_min(ax, bx), nan_min(ay, by)), nan_min(az, bz));
   const float thi = nan_min(nan_min(nan_max(ax, bx), nan_max(ay, by)), nan_max(az, bz));
   const float box_entry = nan_max(tlo, 0.f);
@@ -161,12 +170,14 @@ __global__ void __launch_bounds__(kThreads, 1)
                      const float* __restrict__ maxd, const float* __restrict__ early,
                      const int* __restrict__ excl, const int* __restrict__ lo,
                      const int* __restrict__ hi, const float* __restrict__ maxent,
+                     const float* __restrict__ margin,
                      const int* __restrict__ order, const float* __restrict__ entry,
                      const float4* __restrict__ tris,
                      const float* __restrict__ cmin, const float* __restrict__ cmax,
-                     int num_clusters, int cluster, int use_skip, float* __restrict__ t_out,
-                     int* __restrict__ prim_out, float* __restrict__ u_out,
-                     float* __restrict__ v_out, int* __restrict__ tested_out) {
+                     const int* __restrict__ prange, int num_clusters, int cluster,
+                     int use_skip, float* __restrict__ t_out, int* __restrict__ prim_out,
+                     float* __restrict__ u_out, float* __restrict__ v_out,
+                     int* __restrict__ tested_out) {
   extern __shared__ float4 smem[];
   const int n16 = cluster * kRowFloat4;  // 16-byte chunks of a cluster's rows
   float4* rows = smem;                   // 2 buffers of n16
@@ -179,10 +190,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int* ord = order + static_cast<size_t>(tile) * L;
   const float* ent = entry + static_cast<size_t>(tile) * L;
   int* key = &sh.key[part][0][q];
+  int* row = &sh.row[part][0][q];
 
   const int r = tile * kTileRays + q;
-  Ray ray = {o[3 * r], o[3 * r + 1], o[3 * r + 2], d[3 * r], d[3 * r + 1], d[3 * r + 2],
-             excl[r], 0, 0};
+  const Ray ray = {o[3 * r], o[3 * r + 1], o[3 * r + 2], d[3 * r], d[3 * r + 1], d[3 * r + 2],
+                   excl[r], lo[r], hi[r]};
   if (part == 0) {
     sh.maxd[q] = maxd[r];
     sh.early[q] = early[r];
@@ -190,8 +202,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     sh.ix[q] = safe_inv(ray.dx);
     sh.iy[q] = safe_inv(ray.dy);
     sh.iz[q] = safe_inv(ray.dz);
-    sh.lo[q] = lo[r];
-    sh.hi[q] = hi[r];
+    const float m = margin[r];
+    sh.lx[q] = __fadd_rn(ray.ox, m);
+    sh.ly[q] = __fadd_rn(ray.oy, m);
+    sh.lz[q] = __fadd_rn(ray.oz, m);
+    sh.hx[q] = __fsub_rn(ray.ox, m);
+    sh.hy[q] = __fsub_rn(ray.oy, m);
+    sh.hz[q] = __fsub_rn(ray.oz, m);
   }
   // A best starting at maxd makes `t < best` imply `t < maxd`.
   float bt[kSublanes];
@@ -213,7 +230,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     hikari::copy_async(rows, tris + static_cast<size_t>(ord[0]) * n16, n16);
     have = 0;
     const bool in =
-        !use_skip || (part == 0 && enters(sh, q, ray, least(bt), cmin, cmax, ord[0]));
+        !use_skip || (part == 0 && enters(sh, q, least(bt), cmin, cmax, ord[0]));
     hikari::copy_wait();
     test = __syncthreads_or(in) != 0;
   }
@@ -237,9 +254,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (prefetch)
         hikari::copy_async(rows + static_cast<size_t>(cur ^ 1) * n16,
                            tris + static_cast<size_t>(ord[j + 1]) * n16, n16);
-      hikari::set_range(ray, sh.lo[q], sh.hi[q], ord[j] * cluster);
-      hikari::test_cluster(rows + static_cast<size_t>(cur) * n16, part * kSublanes, cluster,
-                           kParts * kSublanes, j * cluster, ray, bt, key, kTileRays);
+      const int c = ord[j];
+      hikari::test_cluster<true>(rows + static_cast<size_t>(cur) * n16, part * kSublanes,
+                                 cluster, kParts * kSublanes, c * cluster, ray, bt, key, row,
+                                 kTileRays, prange[2 * c], prange[2 * c + 1]);
       ++tested;
     }
     if (part > 0) {
@@ -260,7 +278,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       unsigned bits = 0;
       if (!done && (best > e_next) && (sh.maxent[q] >= e_next)) bits |= 1u;
-      if (use_skip && more && enters(sh, q, ray, best, cmin, cmax, ord[next])) bits |= 2u;
+      if (use_skip && more && enters(sh, q, best, cmin, cmax, ord[next])) bits |= 2u;
       bits = __reduce_or_sync(0xffffffffu, bits);
       if ((threadIdx.x & 31) == 0 && bits) atomicOr(&sh.vote[j % 3], static_cast<int>(bits));
     }
@@ -278,37 +296,46 @@ __global__ void __launch_bounds__(kThreads, 1)
     test = !use_skip || (all & 2);
   }
 
-  // Merge the parts: the nearer best, and among equal t the one found
-  // first in walk order (the smaller key).
+  // Merge the parts: the nearer best, and among equal t the less key (a
+  // key of -1, no best, lies above every other as unsigned).
   if (part > 0) {
 #pragma unroll
     for (int s = 0; s < kSublanes; ++s) sh.part_t[part - 1][s][q] = bt[s];
   }
   __syncthreads();
   if (part > 0) return;
-  int bp[kSublanes];
+  unsigned bk[kSublanes];
+  int br[kSublanes];
 #pragma unroll
   for (int s = 0; s < kSublanes; ++s) {
-    int k = sh.key[0][s][q];
+    bk[s] = static_cast<unsigned>(sh.key[0][s][q]);
+    br[s] = sh.row[0][s][q];
 #pragma unroll
     for (int p = 1; p < kParts; ++p) {
       const float tp = sh.part_t[p - 1][s][q];
-      const int kp = sh.key[p][s][q];
-      if (tp < bt[s] || (tp == bt[s] && kp < k)) {
+      const unsigned kp = static_cast<unsigned>(sh.key[p][s][q]);
+      if (tp < bt[s] || (tp == bt[s] && kp < bk[s])) {
         bt[s] = tp;
-        k = kp;
+        bk[s] = kp;
+        br[s] = sh.row[p][s][q];
       }
     }
-    // key = step x cluster + first row of the group; prim = the step's
-    // cluster x cluster + that row + s.
-    bp[s] = k >= 0 ? ord[k / cluster] * cluster + k % cluster + s : -1;
   }
-  hikari::halve(bt, bp);
+  // The least key of the eight.
+#pragma unroll
+  for (int s = 1; s < kSublanes; ++s) {
+    if (bt[s] < bt[0] || (bt[s] == bt[0] && bk[s] < bk[0])) {
+      bt[0] = bt[s];
+      bk[0] = bk[s];
+      br[0] = br[s];
+    }
+  }
+  const bool found = static_cast<int>(bk[0]) >= 0;
   float u = 0.f, v = 0.f;
-  if (bp[0] >= 0)
-    hikari::hit_uv(ray, bt[0], tris + static_cast<size_t>(bp[0]) * kRowFloat4, u, v);
+  if (found) hikari::hit_uv(ray, bt[0], tris + static_cast<size_t>(br[0]) * kRowFloat4, u, v);
+  const int prim = found ? static_cast<int>(bk[0]) & hikari::kKeyPrimMask : -1;
   t_out[r] = bt[0];
-  prim_out[r] = bp[0];
+  prim_out[r] = prim;
   u_out[r] = u;
   v_out[r] = v;
   if (threadIdx.x == 0) tested_out[tile] = tested;
@@ -318,12 +345,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 extern "C" int hikari_tile_walk(const float* o, const float* d, const float* maxd,
                                 const float* early, const int* excl, const int* lo,
-                                const int* hi, const float* maxent, const int* order,
-                                const float* entry, const float* tris,
-                                const float* cmin, const float* cmax, int num_tiles,
-                                int num_clusters, int cluster, int use_skip, float* t_out,
-                                int* prim_out, float* u_out, float* v_out, int* tested_out,
-                                void* stream) {
+                                const int* hi, const float* maxent, const float* margin,
+                                const int* order, const float* entry, const float* tris,
+                                const float* cmin, const float* cmax, const int* prange,
+                                int num_tiles, int num_clusters, int cluster, int use_skip,
+                                float* t_out, int* prim_out, float* u_out, float* v_out,
+                                int* tested_out, void* stream) {
   if (num_tiles <= 0) return static_cast<int>(cudaSuccess);
   const int smem = 2 * cluster * kRowFloat4 * static_cast<int>(sizeof(float4)) +
                    static_cast<int>(sizeof(Shared));
@@ -331,9 +358,9 @@ extern "C" int hikari_tile_walk(const float* o, const float* d, const float* max
       tile_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   tile_walk_kernel<<<num_tiles, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      o, d, maxd, early, excl, lo, hi, maxent, order, entry,
-      reinterpret_cast<const float4*>(tris), cmin, cmax, num_clusters, cluster, use_skip, t_out,
-      prim_out, u_out, v_out, tested_out);
+      o, d, maxd, early, excl, lo, hi, maxent, margin, order, entry,
+      reinterpret_cast<const float4*>(tris), cmin, cmax, prange, num_clusters, cluster, use_skip,
+      t_out, prim_out, u_out, v_out, tested_out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,7 @@
 """Built-in scene configs — the port of ``hikari_tpu.io.scenes``. Each
 constructor returns (Scene, Camera, RenderSettings) matching the
-reference's example scenes (examples/*.rs); ``CONFIGS`` maps the five
-names to them.
+reference's example scenes (examples/*.rs), and Bevy's ``many_cubes``
+stress test; ``CONFIGS`` maps the six names to them.
 
 The asset rules are the JAX package's, with the asset directory taken
 from ``assets`` or ``$HIKARI_REFERENCE_ASSETS``: the Cornell box loads
@@ -315,10 +315,56 @@ def procedural_terrain(scene: Scene, n: int = 708, size: float = 200.0, seed: in
     return scene
 
 
+def many_cubes_scene(grid: int = 200) -> Scene:
+    """Bevy v0.9.1's ``examples/stress_tests/many_cubes.rs``, default mode,
+    loop for loop in its spawn order: for each (x, y) of a 200 x 200 grid
+    at 2.5 spacing, skipping every tenth row and column, one unit cube in
+    each of four planes (z = 0, y = 500, y = 0, x = 0, in that order), then
+    one 5x cube at (0, 500, 0): 129,601 cubes, 1,555,212 triangles, all of
+    one mesh and one pink ``StandardMaterial``, under
+    ``DirectionalLightBundle::default()`` (identity rotation: the light
+    travels along -Z; 100,000 lux). The material takes Bevy 0.9.1's
+    defaults (perceptual roughness 0.089, metallic 0.01, reflectance 0.5),
+    not the port's ``Material`` roughness (0.5, Bevy 0.10's).
+
+    ``grid`` below 200 (tests) spawns that many per axis and scales the
+    whole layout by 200 / grid, cubes included, so it spans the same 500
+    units under the same camera."""
+    s = 200.0 / grid
+    sun = _sun_from_euler(0.0, 0.0, 0.0, 100000.0)
+    scene = Scene(materials=[], directional_light=sun)
+    pink = scene.add_material(Material(base_color=(1.0, 0.08, 0.58, 1.0),
+                                       perceptual_roughness=0.089, metallic=0.01,
+                                       reflectance=0.5))
+    cube = scene.add_mesh(cube_mesh(1.0))
+    top = grid * 2.5 * s
+    for x in range(grid):
+        for y in range(grid):
+            if x % 10 == 0 or y % 10 == 0:
+                continue
+            a, b = x * 2.5 * s, y * 2.5 * s
+            for pos in ((a, b, 0.0), (a, top, b), (a, 0.0, b), (0.0, a, b)):
+                scene.add_instance(Instance(cube, pink, _transform(pos, None, (s, s, s))))
+    scene.add_instance(Instance(cube, pink, _transform((0.0, top, 0.0), None, (5.0 * s,) * 3)))
+    return scene
+
+
+def many_cubes_config(width: int = 512, height: int = 512, device=None):
+    """``many_cubes_scene()`` under the example's start pose: the camera
+    at (200, 200, 200) looking along -Z with Bevy's 45-degree vertical
+    field of view (the example's ``move_camera`` rotation is left out).
+    The camera lives on ``device``, the CUDA card unless the caller names
+    another."""
+    cam = Camera.from_lookat(eye=(200.0, 200.0, 200.0), target=(200.0, 200.0, 199.0),
+                             fov_y=float(np.pi / 4), device=device)
+    return many_cubes_scene(), cam, RenderSettings(width=width, height=height)
+
+
 CONFIGS = {
     "cornell": cornell_config,
     "minimal": minimal_config,
     "simple": simple_config,
     "scene": scene_config,
     "city": city_config,
+    "many_cubes": many_cubes_config,
 }

@@ -96,6 +96,10 @@ class SceneBuffers:
     sun_direction_to_light: torch.Tensor
     sun_color: torch.Tensor
     ambient_color: torch.Tensor
+    # The tile walk's row order (trace/tile_walk.tile_clusters): the prim of
+    # each of the (P,) rows, whole instances in the TLAS's depth-first leaf
+    # order, each instance's prims in order, padding last.
+    tile_rows: torch.Tensor
 
     num_tris: int = 0
     num_nodes: int = 0
@@ -120,6 +124,21 @@ def _pad(arr: np.ndarray, n: int, fill=0) -> np.ndarray:
         return arr
     pad_shape = (n - len(arr),) + arr.shape[1:]
     return np.concatenate([arr, np.full(pad_shape, fill, dtype=arr.dtype)])
+
+
+def tile_rows(arrays, padded: int) -> np.ndarray:
+    """(padded,) int32: the prims in the tile walk's row order. Instances
+    take the order of the TLAS's leaves, depth first (the nodes
+    [0, num_tlas_nodes) of the stitched graph, whose portals carry their
+    instance), which keeps near instances together; each instance's prims
+    stay in order; the padding prims come last."""
+    tlas_inst = np.asarray(arrays.node_inst[: int(arrays.num_tlas_nodes)])
+    order = tlas_inst[tlas_inst >= 0]
+    count = np.asarray(arrays.inst_prim_count)[order].astype(np.int64)
+    first = np.asarray(arrays.inst_prim_offset)[order].astype(np.int64)
+    before = np.cumsum(count) - count
+    rows = np.repeat(first - before, count) + np.arange(int(count.sum()))
+    return np.concatenate([rows, np.arange(len(rows), padded)]).astype(np.int32)
 
 
 def to_device(
@@ -225,6 +244,7 @@ def to_device(
         sun_direction_to_light=dev(arrays.sun_direction_to_light),
         sun_color=dev(arrays.sun_color),
         ambient_color=dev(arrays.ambient_color),
+        tile_rows=dev(tile_rows(arrays, p)),
         num_tris=num_tris,
         num_nodes=num_nodes,
         num_instances=num_inst,

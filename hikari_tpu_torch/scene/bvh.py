@@ -84,6 +84,25 @@ def build_flat_bvh(mins: np.ndarray, maxs: np.ndarray, builder: str = "native") 
     return build_flat_bvh_numpy(mins, maxs)
 
 
+def build_flat_bvhs(mins: np.ndarray, maxs: np.ndarray, counts: np.ndarray,
+                    builder: str = "native"):
+    """One BVH per set of ``counts`` consecutive primitives, each as
+    ``build_flat_bvh`` builds it alone: (mins, maxs, entry, exit) of every
+    set's nodes one after another (entries and exits local to the set) and
+    each set's node count. "native" builds them all in one call."""
+    if builder == "native":
+        from hikari_tpu_torch.scene import native
+
+        return native.get_builder().build_many(mins, maxs, counts)
+    if builder != "numpy":
+        raise ValueError(f"unknown BVH builder {builder!r}; expected one of {BUILDERS}")
+    starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    trees = [build_flat_bvh_numpy(mins[a:b], maxs[a:b]) for a, b in zip(starts[:-1], starts[1:])]
+    return (np.concatenate([t.mins for t in trees]), np.concatenate([t.maxs for t in trees]),
+            np.concatenate([t.entry for t in trees]), np.concatenate([t.exit for t in trees]),
+            np.array([t.count for t in trees], dtype=np.int64))
+
+
 def build_flat_bvh_numpy(mins: np.ndarray, maxs: np.ndarray) -> FlatBvh:
     mins = np.asarray(mins, dtype=np.float32).reshape(-1, 3)
     maxs = np.asarray(maxs, dtype=np.float32).reshape(-1, 3)
@@ -231,35 +250,13 @@ def tree_depth(left: np.ndarray, right: np.ndarray, root: int = 0) -> int:
     if len(left) == 0:
         return 0
     depth = 0
-    frontier = [root]
-    while frontier:
-        nxt = []
-        for i in frontier:
-            l, r = int(left[i]), int(right[i])
-            if l >= 0:
-                nxt.append(l)
-            if r >= 0 and r != l:
-                nxt.append(r)
-        if not nxt:
-            break
+    frontier = np.array([root], dtype=np.int64)
+    while True:
+        lc, rc = left[frontier], right[frontier]
+        frontier = np.concatenate([lc[lc >= 0], rc[(rc >= 0) & (rc != lc)]])
+        if not frontier.size:
+            return depth
         depth += 1
-        frontier = nxt
-    return depth
-
-
-def offset_bvh(bvh: FlatBvh, node_offset: int, exit_remap: int) -> FlatBvh:
-    """Shift a flattened subtree to live at ``node_offset`` inside a larger
-    node array, rewiring every 'leave the tree' exit (== count) to
-    ``exit_remap``. Entry indices of internal nodes shift too; leaf entries
-    (negative) are left to the caller to re-base primitive ids."""
-    count = bvh.count
-    entry = bvh.entry.copy()
-    internal = entry >= 0
-    entry[internal] += node_offset
-    exit_ = np.where(bvh.exit >= count, exit_remap, bvh.exit + node_offset)
-    return FlatBvh(
-        bvh.mins.copy(), bvh.maxs.copy(), entry, exit_.astype(np.int32), bvh.inst.copy()
-    )
 
 
 def validate_flat_bvh(bvh: FlatBvh, num_prims: int) -> None:

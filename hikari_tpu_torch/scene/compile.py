@@ -21,13 +21,12 @@ import numpy as np
 
 from hikari_tpu_torch.scene.alias import build_alias_table
 from hikari_tpu_torch.scene.bvh import (
-    FlatBvh,
     build_flat_bvh,
+    build_flat_bvhs,
     flat_bvh_children,
-    offset_bvh,
     tree_depth,
 )
-from hikari_tpu_torch.scene.mesh import Mesh, transform_normals, transform_points
+from hikari_tpu_torch.scene.mesh import Mesh
 
 # ---------------------------------------------------------------------------
 # Host-side scene description (the "ECS world")
@@ -216,88 +215,89 @@ def compile_scene(scene: Scene, builder: str = "native") -> SceneArrays:
     SURVEY.md §3.2): triangulate -> world transform -> BLAS per instance ->
     TLAS -> stitch -> emissive detection -> alias tables -> emissive BVH.
     ``builder`` ("native" or "numpy") builds every BVH and alias table; the
-    triangle order follows it."""
+    triangle order follows it.
+
+    The work is batched, not looped per instance: the transforms run over
+    all instances of a mesh at once, the BLASes in one native call, and
+    the stitch over every node at once. The arrays are the per-instance
+    loop's bit for bit (the same operations on the same values)."""
     insts = scene.instances
     num_inst = len(insts)
     if num_inst == 0:
         raise ValueError("scene has no instances")
 
-    tri_world, tri_vidx, tri_inst, tri_local = [], [], [], []
-    tri_mesh_index, inst_perm = [], []
-    vert_normal, vert_uv, vert_normal_local, vert_inst = [], [], [], []
-    inst_min, inst_max = [], []
+    inst_mesh = np.array([i.mesh for i in insts], dtype=np.int64)
     inst_material = np.array([i.material for i in insts], dtype=np.int32)
-    inst_prim_offset, inst_prim_count = [], []
     inst_model = np.stack([i.transform for i in insts])
     inst_prev_model = np.stack([i.previous_transform for i in insts])
-    inst_inv_model = np.stack([np.linalg.inv(i.transform) for i in insts])
+    inst_inv_model = np.linalg.inv(inst_model)
 
-    blas_list: list[FlatBvh] = []
-    vert_offset = 0
-    prim_offset = 0
-    for inst_id, inst in enumerate(insts):
-        mesh: Mesh = scene.meshes[inst.mesh]
-        wpos = transform_points(inst.transform, mesh.positions)
-        wnorm = transform_normals(inst.transform, mesh.normals)
-        tris = wpos[mesh.indices]  # (p, 3, 3)
+    tri_count = np.array([len(m.indices) for m in scene.meshes], dtype=np.int64)[inst_mesh]
+    vert_count = np.array([m.num_vertices for m in scene.meshes], dtype=np.int64)[inst_mesh]
+    prim_start = np.concatenate([[0], np.cumsum(tri_count)[:-1]]).astype(np.int64)
+    vert_start = np.concatenate([[0], np.cumsum(vert_count)[:-1]]).astype(np.int64)
+    P, V = int(tri_count.sum()), int(vert_count.sum())
 
-        lo = tris.min(axis=1)
-        hi = tris.max(axis=1)
-        blas = build_flat_bvh(lo, hi, builder)
-        # Reorder this instance's triangles into the BLAS's depth-first
-        # leaf order: the SAH tree is spatially coherent, so the tracer
-        # backends' fixed 128-triangle clusters (trace/tiled.py,
-        # trace/pallas_tiled.py) inherit tight AABBs instead of
-        # mesh-emission-order luck. Leaf entries are then relabeled to
-        # the permuted ids (leaf rank i now holds local prim i).
-        leaf_mask = blas.entry < 0
-        perm = (-blas.entry[leaf_mask] - 1).astype(np.int64)
-        blas.entry[leaf_mask] = -(
-            np.arange(len(perm), dtype=np.int32) + 1
-        )
-        blas_list.append(blas)
-        inst_perm.append(perm)
+    # World space, in each instance's mesh order, mesh by mesh.
+    tris = np.empty((P, 3, 3), dtype=np.float32)
+    local = np.empty((P, 3, 3), dtype=np.float32)
+    vidx = np.empty((P, 3), dtype=np.int64)
+    vert_normal = np.empty((V, 3), dtype=np.float32)
+    vert_uv = np.empty((V, 2), dtype=np.float32)
+    vert_normal_local = np.empty((V, 3), dtype=np.float32)
+    inst_min = np.empty((num_inst, 3), dtype=np.float32)
+    inst_max = np.empty((num_inst, 3), dtype=np.float32)
+    for m in np.unique(inst_mesh):
+        ids = np.nonzero(inst_mesh == m)[0]
+        mesh: Mesh = scene.meshes[m]
+        model = inst_model[ids]
+        # transform_points and transform_normals, over the instances at once.
+        wpos = np.matmul(mesh.positions[None], model[:, :3, :3].transpose(0, 2, 1))
+        wpos = wpos + model[:, None, :3, 3]
+        wnorm = np.matmul(mesh.normals[None], np.linalg.inv(model[:, :3, :3]))
+        wnorm = wnorm / np.maximum(np.linalg.norm(wnorm, axis=-1, keepdims=True), 1e-20)
+        rows = (prim_start[ids][:, None] + np.arange(len(mesh.indices))).reshape(-1)
+        vrows = (vert_start[ids][:, None] + np.arange(mesh.num_vertices)).reshape(-1)
+        tris[rows] = wpos[:, mesh.indices].reshape(-1, 3, 3)
+        local[rows] = np.broadcast_to(mesh.positions[mesh.indices],
+                                      (len(ids),) + (len(mesh.indices), 3, 3)).reshape(-1, 3, 3)
+        vidx[rows] = np.broadcast_to(mesh.indices, (len(ids),) + mesh.indices.shape).reshape(-1, 3)
+        vert_normal[vrows] = wnorm.reshape(-1, 3)
+        vert_uv[vrows] = np.broadcast_to(mesh.uvs, (len(ids),) + mesh.uvs.shape).reshape(-1, 2)
+        vert_normal_local[vrows] = np.broadcast_to(
+            mesh.normals, (len(ids),) + mesh.normals.shape).reshape(-1, 3)
+        inst_min[ids] = wpos.min(axis=1)
+        inst_max[ids] = wpos.max(axis=1)
 
-        tri_world.append(tris[perm])
-        tri_vidx.append(mesh.indices[perm].astype(np.int32) + vert_offset)
-        tri_inst.append(np.full(len(tris), inst_id, dtype=np.int32))
-        tri_mesh_index.append(perm.astype(np.int32))
-        tri_local.append(mesh.positions[mesh.indices[perm]])
-        vert_normal.append(wnorm)
-        vert_uv.append(mesh.uvs)
-        vert_normal_local.append(mesh.normals)
-        vert_inst.append(np.full(mesh.num_vertices, inst_id, dtype=np.int32))
+    # One BLAS per instance. Each instance's triangles go into its BLAS's
+    # depth-first leaf order: the SAH tree is spatially coherent, so the
+    # tracer backends' fixed 128-triangle clusters (trace/tiled.py,
+    # trace/pallas_tiled.py) inherit tight AABBs instead of
+    # mesh-emission-order luck. Leaf entries are then relabeled to the
+    # permuted ids (leaf rank i now holds local prim i).
+    blas_min, blas_max, blas_entry, blas_exit, node_count = build_flat_bvhs(
+        tris.min(axis=1), tris.max(axis=1), tri_count, builder)
+    leaf = blas_entry < 0
+    tri_owner = np.repeat(np.arange(num_inst, dtype=np.int64), tri_count)
+    perm = (-blas_entry[leaf] - 1).astype(np.int64)  # instance-local, in instance order
+    rank = np.arange(P, dtype=np.int64) - prim_start[tri_owner]
+    src = prim_start[tri_owner] + perm
 
-        inst_min.append(wpos.min(axis=0))
-        inst_max.append(wpos.max(axis=0))
-
-        inst_prim_offset.append(prim_offset)
-        inst_prim_count.append(len(tris))
-        vert_offset += mesh.num_vertices
-        prim_offset += len(tris)
-
-    tri_world = np.concatenate(tri_world).astype(np.float32)
-    tri_vidx = np.concatenate(tri_vidx)
-    tri_inst = np.concatenate(tri_inst)
-    tri_mesh_index = np.concatenate(tri_mesh_index)
-    tri_local = np.concatenate(tri_local).astype(np.float32)
-    vert_normal = np.concatenate(vert_normal).astype(np.float32)
-    vert_uv = np.concatenate(vert_uv).astype(np.float32)
-    vert_normal_local = np.concatenate(vert_normal_local).astype(np.float32)
-    vert_inst = np.concatenate(vert_inst)
-    inst_min = np.stack(inst_min).astype(np.float32)
-    inst_max = np.stack(inst_max).astype(np.float32)
-    inst_prim_offset = np.asarray(inst_prim_offset, dtype=np.int32)
-    inst_prim_count = np.asarray(inst_prim_count, dtype=np.int32)
+    tri_world = tris[src]
+    tri_vidx = (vidx[src] + vert_start[tri_owner][:, None]).astype(np.int32)
+    tri_inst = tri_owner.astype(np.int32)
+    tri_mesh_index = perm.astype(np.int32)
+    tri_local = local[src]
+    vert_inst = np.repeat(np.arange(num_inst, dtype=np.int32), vert_count)
+    inst_prim_offset = prim_start.astype(np.int32)
+    inst_prim_count = tri_count.astype(np.int32)
 
     # --- stitch TLAS + per-instance BLAS into one node graph ---
     tlas = build_flat_bvh(inst_min, inst_max, builder)
     tlas_count = tlas.count
-    blas_offsets = np.zeros(num_inst, dtype=np.int32)
-    total = tlas_count
-    for i, b in enumerate(blas_list):
-        blas_offsets[i] = total
-        total += b.count
+    node_start = np.concatenate([[0], np.cumsum(node_count)[:-1]]).astype(np.int64)
+    blas_offsets = (tlas_count + node_start).astype(np.int32)
+    total = tlas_count + int(node_count.sum())
 
     node_min = np.zeros((total, 3), dtype=np.float32)
     node_max = np.zeros((total, 3), dtype=np.float32)
@@ -316,39 +316,37 @@ def compile_scene(scene: Scene, builder: str = "native") -> SceneArrays:
     tlas_left, tlas_right = flat_bvh_children(tlas)
     node_left[:tlas_count] = tlas_left
     node_right[:tlas_count] = tlas_right
+    node_entry[:tlas_count] = tlas.entry
+    portal = np.nonzero(tlas.entry < 0)[0]
+    portal_inst = -tlas.entry[portal] - 1
+    node_entry[portal] = blas_offsets[portal_inst]
+    node_inst[portal] = portal_inst
     inst_blas_start = np.zeros(num_inst, dtype=np.int32)
     inst_blas_end = np.zeros(num_inst, dtype=np.int32)
-    for t in range(tlas_count):
-        e = tlas.entry[t]
-        if e < 0:  # TLAS leaf -> portal
-            inst_id = -e - 1
-            node_entry[t] = blas_offsets[inst_id]
-            node_inst[t] = inst_id
-            inst_blas_start[inst_id] = blas_offsets[inst_id]
-            inst_blas_end[inst_id] = node_exit[t]
-            # Refit: portal AABB mirrors its BLAS root (single child).
-            node_left[t] = blas_offsets[inst_id]
-            node_right[t] = -1
-        else:
-            node_entry[t] = e
+    inst_blas_start[portal_inst] = blas_offsets[portal_inst]
+    inst_blas_end[portal_inst] = node_exit[portal]
+    # Refit: portal AABB mirrors its BLAS root (single child).
+    node_left[portal] = blas_offsets[portal_inst]
+    node_right[portal] = -1
 
-    for inst_id, b in enumerate(blas_list):
-        off = int(blas_offsets[inst_id])
-        portal_exit = int(inst_blas_end[inst_id])
-        shifted = offset_bvh(b, off, portal_exit)
-        sl = slice(off, off + b.count)
-        node_min[sl] = shifted.mins
-        node_max[sl] = shifted.maxs
-        # Re-base leaf primitive ids to global triangle indices.
-        entry = shifted.entry
-        leaf = entry < 0
-        entry = np.where(leaf, entry - int(inst_prim_offset[inst_id]), entry)
-        node_entry[sl] = entry
-        node_exit[sl] = shifted.exit
-        node_inst[sl] = inst_id
-        bl, br = flat_bvh_children(b)
-        node_left[sl] = np.where(bl >= 0, bl + off, -1)
-        node_right[sl] = np.where(br >= 0, br + off, -1)
+    # Every BLAS node at once: internal entries and exits shifted to the
+    # node's place in the graph, "leave the tree" rewired to the portal's
+    # exit, leaf primitive ids re-based to global triangle indices.
+    owner = np.repeat(np.arange(num_inst, dtype=np.int64), node_count)
+    off = blas_offsets[owner].astype(np.int64)
+    internal = ~leaf
+    sl = slice(tlas_count, total)
+    node_min[sl] = blas_min
+    node_max[sl] = blas_max
+    entry = blas_entry + off
+    entry[leaf] = -(rank + 1) - prim_start[tri_owner]
+    node_entry[sl] = entry
+    node_exit[sl] = np.where(blas_exit >= node_count[owner], inst_blas_end[owner], blas_exit + off)
+    node_inst[sl] = owner
+    left_local = np.where(internal, blas_entry, -1).astype(np.int64)
+    right_local = np.where(internal, blas_exit[node_start[owner] + np.maximum(left_local, 0)], -1)
+    node_left[sl] = np.where(left_local >= 0, left_local + off, -1)
+    node_right[sl] = np.where(right_local >= 0, right_local + off, -1)
 
     refit_depth = tree_depth(node_left, node_right, root=0)
 
@@ -357,17 +355,20 @@ def compile_scene(scene: Scene, builder: str = "native") -> SceneArrays:
     em_emissive, em_position, em_radius = [], [], []
     em_instance, em_alias_offset, em_alias_count, em_surface_area = [], [], [], []
     alias_prob_all, alias_index_all = [], []
-    for inst_id, inst in enumerate(insts):
-        mat: Material = scene.materials[inst.material]
-        emissive = np.asarray(mat.emissive, dtype=np.float32)
-        intensity = 255.0 * emissive[3] * np.linalg.norm(emissive[:3])
-        if intensity <= 0.0:
+    mat_emissive = [np.asarray(m.emissive, dtype=np.float32) for m in scene.materials]
+    mat_intensity = [255.0 * e[3] * np.linalg.norm(e[:3]) for e in mat_emissive]
+    for inst_id in range(num_inst):
+        if mat_intensity[inst_material[inst_id]] <= 0.0:
             continue
+        inst = insts[inst_id]
+        emissive = mat_emissive[inst.material]
+        intensity = mat_intensity[inst.material]
         mesh: Mesh = scene.meshes[inst.mesh]
         # Areas in the instance's DFS-leaf triangle order: alias_index
         # values are instance-local PERMUTED prim ids (sampling converts
         # them to global ids via inst_prim_offset, render/sampling.py:212).
-        areas = mesh.triangle_areas(inst.transform)[inst_perm[inst_id]]
+        s0 = prim_start[inst_id]
+        areas = mesh.triangle_areas(inst.transform)[perm[s0:s0 + tri_count[inst_id]]]
         prob, index = build_alias_table(areas, builder)
         em_emissive.append(emissive)
         center = 0.5 * (inst_min[inst_id] + inst_max[inst_id])
@@ -404,6 +405,7 @@ def compile_scene(scene: Scene, builder: str = "native") -> SceneArrays:
         erefit_depth = 0
 
     mats = scene.materials
+    tex_atlas, tex_meta = _build_texture_atlas(scene)
     return SceneArrays(
         tri_world=tri_world,
         tri_vidx=tri_vidx,
@@ -459,8 +461,8 @@ def compile_scene(scene: Scene, builder: str = "native") -> SceneArrays:
         mat_occlusion_texture=np.asarray(
             [m.occlusion_texture for m in mats], dtype=np.int32
         ),
-        tex_atlas=_build_texture_atlas(scene)[0],
-        tex_meta=_build_texture_atlas(scene)[1],
+        tex_atlas=tex_atlas,
+        tex_meta=tex_meta,
         num_textures=len(scene.textures),
         em_emissive=np.asarray(em_emissive, dtype=np.float32).reshape(-1, 4),
         em_position=em_position_a,

@@ -59,12 +59,16 @@ def _library_path() -> Path:
 
 class Builder:
     """ctypes front of the library: ``build`` (a ``FlatBvh``) and
-    ``build_alias_table`` (prob, index), the numpy builders' contracts."""
+    ``build_alias_table`` (prob, index), the numpy builders' contracts, and
+    ``build_many`` (many ``build``s in one call)."""
 
     def __init__(self, lib: ctypes.CDLL):
         fp, ip = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32)
         lib.hikari_bvh_build.restype = ctypes.c_int64
         lib.hikari_bvh_build.argtypes = [fp, fp, ctypes.c_int64, fp, fp, ip, ip]
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        lib.hikari_bvh_build_many.restype = ctypes.c_int64
+        lib.hikari_bvh_build_many.argtypes = [fp, fp, i64p, ctypes.c_int64, fp, fp, ip, ip]
         lib.hikari_alias_table_build.restype = None
         lib.hikari_alias_table_build.argtypes = [fp, ctypes.c_int64, fp, ip]
         self._lib = lib
@@ -92,6 +96,35 @@ class Builder:
             node_mins[:count].copy(), node_maxs[:count].copy(), entry[:count].copy(),
             exit_[:count].copy(), np.full(count, -1, dtype=np.int32),
         )
+
+    def build_many(self, mins: np.ndarray, maxs: np.ndarray, counts: np.ndarray):
+        """One BVH per set of ``counts`` consecutive prims, each as ``build``
+        gives it alone, in one call: (mins, maxs, entry, exit) of every
+        set's nodes one after another (entries local to the set) and each
+        set's node count (2n - 1, or 0 for an empty set)."""
+        mins = np.ascontiguousarray(mins, dtype=np.float32).reshape(-1, 3)
+        maxs = np.ascontiguousarray(maxs, dtype=np.float32).reshape(-1, 3)
+        counts = np.asarray(counts, dtype=np.int64)
+        offsets = np.zeros(len(counts) + 1, dtype=np.int64)
+        np.cumsum(counts, out=offsets[1:])
+        if offsets[-1] != len(mins):
+            raise ValueError(f"build_many: counts sum to {offsets[-1]}, not {len(mins)} prims")
+        nodes = np.where(counts > 0, 2 * counts - 1, 0)
+        total = int(nodes.sum())
+        node_mins = np.empty((total, 3), dtype=np.float32)
+        node_maxs = np.empty((total, 3), dtype=np.float32)
+        entry = np.empty(total, dtype=np.int32)
+        exit_ = np.empty(total, dtype=np.int32)
+        fp, ip = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32)
+        count = int(self._lib.hikari_bvh_build_many(
+            mins.ctypes.data_as(fp), maxs.ctypes.data_as(fp),
+            offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(counts),
+            node_mins.ctypes.data_as(fp), node_maxs.ctypes.data_as(fp),
+            entry.ctypes.data_as(ip), exit_.ctypes.data_as(ip),
+        ))
+        if count != total:
+            raise RuntimeError(f"build_many: {count} nodes, {total} expected")
+        return node_mins, node_maxs, entry, exit_, nodes
 
     def build_alias_table(self, areas: np.ndarray):
         areas = np.ascontiguousarray(areas, dtype=np.float32)

@@ -214,6 +214,22 @@ int64_t hikari_bvh_build(const float *mins, const float *maxs, int64_t n,
   return count;
 }
 
+// Many BVHs in one call: set s is the prims [offsets[s], offsets[s + 1])
+// of mins/maxs, built as hikari_bvh_build builds it alone (prim ids local
+// to the set). A set of n > 0 prims takes 2n - 1 nodes, written after the
+// previous sets' nodes; an empty set takes none. Returns the node count.
+int64_t hikari_bvh_build_many(const float *mins, const float *maxs, const int64_t *offsets,
+                              int64_t num_sets, float *out_min, float *out_max,
+                              int32_t *out_entry, int32_t *out_exit) {
+  int64_t total = 0;
+  for (int64_t s = 0; s < num_sets; ++s) {
+    const int64_t p0 = offsets[s], n = offsets[s + 1] - offsets[s];
+    total += hikari_bvh_build(mins + 3 * p0, maxs + 3 * p0, n, out_min + 3 * total,
+                              out_max + 3 * total, out_entry + total, out_exit + total);
+  }
+  return total;
+}
+
 // Vose/"pour" alias table over triangle areas — same algorithm shape as the
 // reference (src/mesh_material/mod.rs:330-376): prob[i] is the probability
 // of redirecting to `index[i]` when bucket i is drawn.

@@ -344,9 +344,10 @@ def slab_lines(cs, label, city, co, cd, dev) -> None:
     cluster, _ = api.tile_cluster_rule(city.tri_n.shape[0])
     order = api.ray_sort_order(city, co, cd)
     oc, dc = co[order].contiguous(), cd[order].contiguous()
-    _, cmin, cmax, cvalid = tw.pack_clusters(city, cluster)
-    p1 = (cmin, cmax, cvalid, oc, ttiled.safe_inv_dir(dc), maxd, lo, hi)
-    p1_ms = cs.cuda_time_ms(lambda: ttiled.tile_cluster_entries(*p1, cluster=cluster), 20)
+    _, cmin, cmax, cvalid, prange, cond = tw.tile_clusters(city, cluster)
+    p1 = (cmin, cmax, cvalid, oc, ttiled.safe_inv_dir(dc), maxd, lo, hi, prange, city.num_tris,
+          tw.ray_margin(oc, cond))
+    p1_ms = cs.cuda_time_ms(lambda: ttiled.tile_cluster_entries(*p1), 20)
     _, cmin_s, cmax_s, cvalid_s = tw.pack_clusters(city, sc.CLUSTER)
     pab = (cmin_s, cmax_s, cvalid_s, co, cd, maxd, lo, hi)
     pab_call = cs.cuda_time_ms(lambda: sc.scatter_plan(*pab), 10)
@@ -361,8 +362,8 @@ def slab_lines(cs, label, city, co, cd, dev) -> None:
     # (d)/(f): the random rays of chip_smoke's cases, whose warps take the
     # mixed-octant and ranged forms of the test.
     _, phase1_d = cs.walk_case(city, *cs.city_random_rays(city, dev))
-    p1_d = cs.cuda_time_ms(lambda: ttiled.tile_cluster_entries(*phase1_d[:8],
-                                                                cluster=phase1_d[8]), 20)
+    p1_d = cs.cuda_time_ms(lambda: ttiled.tile_cluster_entries(
+        *phase1_d[:4], ttiled.safe_inv_dir(phase1_d[4]), *phase1_d[5:]), 20)
     o, d, maxd_f, _, _, lo_f, hi_f = cs.city_random_rays(city, dev)
     pab_f = (cmin_s, cmax_s, cvalid_s, o, d, maxd_f, lo_f, hi_f)
     f_call = cs.cuda_time_ms(lambda: sc.scatter_plan(*pab_f), 10)

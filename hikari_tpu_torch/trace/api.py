@@ -51,7 +51,7 @@ from hikari_tpu_torch.trace.intersect import intersects_aabb, intersects_triangl
 from hikari_tpu_torch.trace.scatter import CLUSTER as SCATTER_CLUSTER
 from hikari_tpu_torch.trace.scatter import trace_scatter
 from hikari_tpu_torch.trace.tiled import TILE_R, trace_tiled
-from hikari_tpu_torch.trace.tile_walk import pack_clusters, trace_tile_walk
+from hikari_tpu_torch.trace.tile_walk import pack_clusters, ray_margin, tile_clusters, trace_tile_walk
 from hikari_tpu_torch.utils import safe_normalize, take_rows
 from hikari_tpu_torch.utils.profiling import host_read
 
@@ -63,6 +63,10 @@ trace_calls = 0
 # Rays this process searched, on any device and backend (under
 # shard_tracing: its shard); a replayed hit searches none.
 rays_traced = 0
+# Clusters the tile walk (K2) tested, summed over its tiles and calls: a
+# tensor on the rays' device, added to without a host sync (0 until the
+# first walk); ``int(clusters_tested)`` reads it.
+clusters_tested = 0
 
 _SEARCH_METHODS = ("auto", "auto_xla", "pallas", "bruteforce", "pallas_tiled", "scatter", "bvh",
                    "tiled")
@@ -251,11 +255,14 @@ def trace_rays(
     which a caller reads (one sync) after a run to know it is 0.
 
     Among hits at exactly equal t the searches keep the JAX kernels'
-    rules. "pallas" and "auto" (K1) and "pallas_tiled" (K2, over all the
-    clusters a tile walks) keep a best per (prim mod 8) sublane and halve
-    the eight towards the lower sublane unless the upper one is strictly
-    nearer, so the sublanes win in the order 0, 4, 2, 6, 1, 5, 3, 7 (a
-    triangle duplicated at prims 1, 4 and 8 returns prim 8). "scatter"
+    rules. "pallas" and "auto" (K1) keep a best per (prim mod 8) sublane
+    and halve the eight towards the lower sublane unless the upper one is
+    strictly nearer, so the sublanes win in the order 0, 4, 2, 6, 1, 5, 3,
+    7 (a triangle duplicated at prims 1, 4 and 8 returns prim 8).
+    "pallas_tiled" (K2) gives the same winner, the least key (t, rank of
+    prim mod 8, prim), in any order of its clusters' rows: it walks rows
+    that keep near instances together (``tile_walk.tile_clusters``), and
+    the tiles' clusters tested sum into ``clusters_tested``. "scatter"
     (K3) applies that rule within each cluster, then keeps the first
     cluster among equal t. "bruteforce" keeps the lowest prim among equal
     t, as the JAX ``_trace_bruteforce`` does; "bvh" keeps the first hit
@@ -386,29 +393,37 @@ def ray_sort_order(scene: SceneBuffers, o, d):
 
 def _trace_tile_walk(scene: SceneBuffers, o, d, maxd, early, excl, lo, hi):
     """Sort the rays into tiles, pad to whole tiles with inert rays
-    (maxd = 0, hi = 0: no cluster entry, never open), walk, and put the
-    hits back in ray order."""
+    (maxd = 0, hi = 0: no cluster entry, never open), walk the clusters of
+    ``tile_walk.tile_clusters``, and put the hits back in ray order. The
+    torch work around the two kernels (the clusters, the sort, the
+    scatter back) runs under the profiler range ``trace_pack``."""
+    global clusters_tested
     cluster, use_skip = tile_cluster_rule(scene.tri_n.shape[0])
     R = o.shape[0]
-    order = ray_sort_order(scene, o, d)
     pad = -(-R // TILE_R) * TILE_R - R
+    with record_function("trace_pack"):
+        order = ray_sort_order(scene, o, d)
 
-    def tiles(x, fill):
-        x = x[order]
-        if pad:
-            x = torch.cat([x, torch.full((pad,) + x.shape[1:], fill, dtype=x.dtype, device=x.device)])
-        return x.contiguous()
+        def tiles(x, fill):
+            x = x[order]
+            if pad:
+                x = torch.cat([x, torch.full((pad,) + x.shape[1:], fill, dtype=x.dtype,
+                                             device=x.device)])
+            return x.contiguous()
 
-    packed, cmin, cmax, cvalid = pack_clusters(scene, cluster)
-    t, prim, u, v, _ = trace_tile_walk(
-        packed, cmin, cmax, cvalid, tiles(o, 0.0), tiles(d, 1.0), tiles(maxd, 0.0),
-        tiles(early, 0.0), tiles(excl, -1), tiles(lo, 0), tiles(hi, 0), cluster, use_skip,
-    )
-    out = []
-    for x in (t, prim, u, v):
-        y = torch.empty((R,), dtype=x.dtype, device=x.device)
-        y[order] = x[:R]
-        out.append(y)
+        packed, cmin, cmax, cvalid, prange, cond = tile_clusters(scene, cluster)
+        rays = [tiles(x, f) for x, f in ((o, 0.0), (d, 1.0), (maxd, 0.0), (early, 0.0),
+                                          (excl, -1), (lo, 0), (hi, 0))]
+        margin = ray_margin(rays[0], cond)
+    t, prim, u, v, tested = trace_tile_walk(packed, cmin, cmax, cvalid, *rays, cluster, use_skip,
+                                            prange, scene.num_tris, margin)
+    with record_function("trace_pack"):
+        clusters_tested = clusters_tested + tested.sum(dtype=torch.int64)
+        out = []
+        for x in (t, prim, u, v):
+            y = torch.empty((R,), dtype=x.dtype, device=x.device)
+            y[order] = x[:R]
+            out.append(y)
     return out
 
 

@@ -54,12 +54,16 @@ build_log = ""
 
 def pack_triangles(scene, count: int | None = None) -> torch.Tensor:
     """(count, 16) float32 rows: n(3) eu(3) ev(3) cn cu cv valid
-    inst(int32 bits) pad(2) — one 64-byte row per triangle, the layout of
-    ``hikari_tpu.trace.pallas_kernel.pack_triangles`` with the instance id
-    kept as integer bits. ``count`` defaults to ``num_tris``: padding rows
-    past it are dropped."""
+    inst(int32 bits) prim(int32 bits) pad — one 64-byte row per triangle,
+    the layout of ``hikari_tpu.trace.pallas_kernel.pack_triangles`` with
+    the instance id kept as integer bits and the row's own prim id in the
+    first pad word (the tile walk and the scatter kernel read it, so their
+    rows may come in any order). ``count`` defaults to ``num_tris``:
+    padding rows past it are dropped."""
     P = int(scene.num_tris if count is None else count)
+    dev = scene.tri_n.device
     inst = scene.tri_inst[:P].to(torch.int32).contiguous().view(torch.float32)
+    prim = torch.arange(P, dtype=torch.int32, device=dev).view(torch.float32)
     return torch.cat(
         [
             scene.tri_n[:P],
@@ -70,7 +74,8 @@ def pack_triangles(scene, count: int | None = None) -> torch.Tensor:
             scene.tri_cv[:P, None],
             scene.tri_valid[:P, None].to(torch.float32),
             inst[:, None],
-            torch.zeros((P, 2), dtype=torch.float32, device=scene.tri_n.device),
+            prim[:, None],
+            torch.zeros((P, 1), dtype=torch.float32, device=dev),
         ],
         dim=1,
     ).contiguous()

@@ -2,9 +2,11 @@
 (``_cluster_bounds``, ``_packed_tris``, ``tile_cluster_entries``,
 ``safe_inv_dir``, ``trace_tiled``), in plain torch on either device.
 
-Triangles are grouped into clusters of ``cluster`` consecutive primitives
-(consecutive in the compiled buffer means BVH depth-first leaf order, so
-clusters are spatially tight). Rays come in tiles of ``TILE_R``.
+Triangles are grouped into clusters of ``cluster`` consecutive rows: here
+the primitives in their compiled order (each instance's run in its BLAS's
+depth-first leaf order); the tile walk's own rows keep near instances
+together (``trace/tile_walk.tile_clusters``). Rays come in tiles of
+``TILE_R``.
 
 Phase 1 (``tile_cluster_entries``): each ray slab-tests every cluster
 AABB, and each tile keeps, per cluster, the nearest entry over its rays.
@@ -104,23 +106,39 @@ def safe_inv_dir(d):
     return 1.0 / torch.where(d.abs() < 1e-20, tiny, d)
 
 
-def _check_entries_args(R: int, L: int, have_range: bool, cluster: int) -> None:
+def prim_ranges(L: int, cluster: int, device) -> torch.Tensor:
+    """(L, 2) i32: each cluster's prims [c*cluster, (c+1)*cluster), for
+    clusters cut from the triangle rows in prim order."""
+    lo = torch.arange(L, dtype=torch.int32, device=device) * cluster
+    return torch.stack([lo, lo + cluster], dim=1).contiguous()
+
+
+def _check_entries_args(R: int, have_range: bool, prange, num_prims: int) -> None:
     if R % TILE_R:
         raise ValueError(f"tile_cluster_entries: {R} rays is not a multiple of {TILE_R}")
     if have_range:
-        if cluster <= 0:
-            raise ValueError("tile_cluster_entries: a prim range needs the cluster size")
-        if L * cluster >= 2**24:
+        if prange is None or num_prims <= 0:
+            raise ValueError("tile_cluster_entries: a prim range needs prange and num_prims")
+        if num_prims >= 2**24:
             raise ValueError("f32 prim range compares are exact only below 2^24 prims")
 
 
 def tile_cluster_entries_reference(cmin, cmax, cvalid, o, inv_d, maxd, lo=None, hi=None,
-                                   cluster: int = 0):
+                                   prange=None, num_prims: int = 0, margin=None):
     """Plain PyTorch twin of the phase-1 kernel, with its exact contract.
     Per-tile nearest cluster entries. o/inv_d: (R, 3), maxd (R,), R a
     multiple of TILE_R; ``lo``/``hi`` (R,) int32, optional: the per-ray
     primitive range [lo, hi), which prunes every cluster whose prim range
-    [c*cluster, (c+1)*cluster) misses it (``cluster`` must then be given).
+    ``prange`` (L, 2) i32 misses it (given with a range:
+    ``trace/tile_walk.tile_clusters``' ranges, or ``prim_ranges`` for
+    clusters in prim order), and ``num_prims`` above the first prim of
+    every valid cluster's range (the scene's prims): a ray with lo <= 0
+    and hi >= num_prims takes every valid cluster, which the kernel's
+    warps skip the compares for. ``margin`` (R,) f32, optional: each ray
+    grows every box by it, taking (lo - (o + m)) * inv and (hi - (o - m)) *
+    inv for each axis's bounds in order (lo = min(cmin, cmax), hi = max,
+    NaN kept), as the kernel stages them; the tile walk's boxes take one,
+    the JAX package's (the "tiled" search and the JAX-parity tests) none.
 
     Returns (entries (T, L), ray_maxent (R,)): per tile and cluster the
     minimum entry distance over the tile's rays (F32_MAX where none
@@ -135,10 +153,9 @@ def tile_cluster_entries_reference(cmin, cmax, cvalid, o, inv_d, maxd, lo=None, 
     R = o.shape[0]
     L = cmin.shape[0]
     have_range = lo is not None
-    _check_entries_args(R, L, have_range, cluster)
+    _check_entries_args(R, have_range, prange, num_prims)
     if have_range:
-        c_lo = torch.arange(L, dtype=torch.float32, device=o.device) * cluster
-        c_hi = c_lo + cluster
+        c_lo, c_hi = prange[:, 0].to(torch.float32), prange[:, 1].to(torch.float32)
     T = R // TILE_R
     entries = torch.empty((T, L), dtype=torch.float32, device=o.device)
     ray_maxent = torch.empty((R,), dtype=torch.float32, device=o.device)
@@ -147,8 +164,15 @@ def tile_cluster_entries_reference(cmin, cmax, cvalid, o, inv_d, maxd, lo=None, 
         t1 = min(T, t0 + tiles)
         s, e = t0 * TILE_R, t1 * TILE_R
         ob, ib = o[s:e, None, :], inv_d[s:e, None, :]
-        a = (cmin[None] - ob) * ib  # (rays, L, 3)
-        b = (cmax[None] - ob) * ib
+        if margin is None:
+            a = (cmin[None] - ob) * ib  # (rays, L, 3)
+            b = (cmax[None] - ob) * ib
+        else:
+            # The kernel stages each axis's bounds in order, so a box whose
+            # min exceeds its max grows from its bounds in order too.
+            mb = margin[s:e, None, None]
+            a = (torch.minimum(cmin, cmax)[None] - (ob + mb)) * ib
+            b = (torch.maximum(cmin, cmax)[None] - (ob - mb)) * ib
         tlo = torch.minimum(a, b).amax(dim=-1)
         thi = torch.maximum(a, b).amin(dim=-1)
         del a, b
@@ -172,7 +196,7 @@ def build() -> float:
     start = time.perf_counter()
     lib, build_log = build_library(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.hikari_tile_entries.argtypes = [ptr] * 8 + [i32] * 3 + [ptr] * 5
+    lib.hikari_tile_entries.argtypes = [ptr] * 10 + [i32] * 3 + [ptr] * 5
     lib.hikari_tile_entries.restype = i32
     lib.hikari_tile_entries_error_string.argtypes = [i32]
     lib.hikari_tile_entries_error_string.restype = ctypes.c_char_p
@@ -180,8 +204,8 @@ def build() -> float:
     return time.perf_counter() - start
 
 
-def tile_cluster_entries(cmin, cmax, cvalid, o, inv_d, maxd, lo=None, hi=None,
-                         cluster: int = 0):
+def tile_cluster_entries(cmin, cmax, cvalid, o, inv_d, maxd, lo=None, hi=None, prange=None,
+                         num_prims: int = 0, margin=None):
     """Phase 1: (entries (T, L), ray_maxent (R,)), as
     ``tile_cluster_entries_reference`` with the same arguments. CPU
     tensors run the twin; CUDA tensors launch the kernel
@@ -189,18 +213,19 @@ def tile_cluster_entries(cmin, cmax, cvalid, o, inv_d, maxd, lo=None, hi=None,
     then the tests) or raise."""
     global launches
     if o.device.type == "cpu":
-        return tile_cluster_entries_reference(cmin, cmax, cvalid, o, inv_d, maxd, lo, hi, cluster)
+        return tile_cluster_entries_reference(cmin, cmax, cvalid, o, inv_d, maxd, lo, hi, prange,
+                                              num_prims, margin)
     if o.device.type != "cuda":
         raise NotImplementedError(f"tile_cluster_entries: no kernel for device {o.device}")
     R, L = o.shape[0], cmin.shape[0]
     have_range = lo is not None
-    _check_entries_args(R, L, have_range, cluster)
+    _check_entries_args(R, have_range, prange, num_prims)
     if (hi is None) != (lo is None):
         raise ValueError("tile_cluster_entries: give both lo and hi, or neither")
     if L == 0:
         raise ValueError("tile_cluster_entries: no clusters")
-    if 3 * R >= 2**31 or L * cluster >= 2**31:
-        raise ValueError("tile_cluster_entries: too many rays or prims for int32 indexing")
+    if 3 * R >= 2**31:
+        raise ValueError("tile_cluster_entries: too many rays for int32 indexing")
     dev = o.device
     args = [
         ("o", o, torch.float32, (R, 3)),
@@ -211,7 +236,10 @@ def tile_cluster_entries(cmin, cmax, cvalid, o, inv_d, maxd, lo=None, hi=None,
         ("cvalid", cvalid, torch.bool, (L,)),
     ]
     if have_range:
-        args += [("lo", lo, torch.int32, (R,)), ("hi", hi, torch.int32, (R,))]
+        args += [("lo", lo, torch.int32, (R,)), ("hi", hi, torch.int32, (R,)),
+                 ("prange", prange, torch.int32, (L, 2))]
+    if margin is not None:
+        args.append(("margin", margin, torch.float32, (R,)))
     for name, x, dtype, shape in args:
         check_kernel_arg("tile_cluster_entries", name, x, dtype, shape, dev)
     build()
@@ -225,9 +253,11 @@ def tile_cluster_entries(cmin, cmax, cvalid, o, inv_d, maxd, lo=None, hi=None,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib.hikari_tile_entries(
-            o.data_ptr(), inv_d.data_ptr(), maxd.data_ptr(),
+            o.data_ptr(), inv_d.data_ptr(), margin.data_ptr() if margin is not None else None,
+            maxd.data_ptr(),
             lo.data_ptr() if have_range else None, hi.data_ptr() if have_range else None,
-            cmin.data_ptr(), cmax.data_ptr(), cvalid.data_ptr(), T, L, cluster,
+            cmin.data_ptr(), cmax.data_ptr(), cvalid.data_ptr(),
+            prange.data_ptr() if have_range else None, T, L, num_prims,
             table.data_ptr(), entries.data_ptr(), ray_maxent.data_ptr(), stream,
             ctypes.byref(launched),
         )
@@ -315,7 +345,8 @@ def trace_tiled(scene, o, d, maxd, early, excl, lo, hi):
 
     # ---- phase 1: per-tile cluster entry distances ----
     entry_min, ray_maxent = tile_cluster_entries(
-        cmin, cmax, cvalid, o, safe_inv_dir(d), maxd, lo, hi, cluster=CLUSTER
+        cmin, cmax, cvalid, o, safe_inv_dir(d), maxd, lo, hi, prim_ranges(L, CLUSTER, dev),
+        L * CLUSTER
     )
     entry_sorted, order = torch.sort(entry_min, dim=1, stable=True)  # (T, L) near to far
 

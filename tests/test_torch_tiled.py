@@ -278,10 +278,11 @@ def test_tile_entries_and_sort_equal(city, with_range):
     tcmin, tcmax, tcvalid = ttiled.cluster_bounds(tb, cluster)
     tinv = ttiled.safe_inv_dir(torch.from_numpy(d))
     np.testing.assert_array_equal(tinv.numpy(), np.asarray(jinv))
-    rng_t = (torch.from_numpy(lo), torch.from_numpy(hi))
+    prange, num_prims, margin = _prim_order(tcmin.shape[0], cluster, o.shape[0])
+    rng_t = (torch.from_numpy(lo), torch.from_numpy(hi), prange, num_prims)
     got_e, got_m = ttiled.tile_cluster_entries(
         tcmin, tcmax, tcvalid, torch.from_numpy(o), tinv, torch.from_numpy(maxd),
-        *(rng_t if with_range else (None, None)), cluster=cluster,
+        *(rng_t if with_range else ()),
     )
     np.testing.assert_array_equal(got_e.numpy(), np.asarray(want_e))
     np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m).reshape(-1))
@@ -292,7 +293,8 @@ def test_tile_entries_and_sort_equal(city, with_range):
     if with_range:  # tile_entries always applies the range, as trace_pallas_tiled does
         t_order, t_entry, t_maxent = tw.tile_entries(
             tcmin, tcmax, tcvalid, torch.from_numpy(o), torch.from_numpy(d),
-            torch.from_numpy(maxd), torch.from_numpy(lo), torch.from_numpy(hi), cluster,
+            torch.from_numpy(maxd), torch.from_numpy(lo), torch.from_numpy(hi), prange,
+            num_prims, margin,
         )
         assert t_order.dtype == torch.int32
         np.testing.assert_array_equal(t_order.numpy(), order)
@@ -365,7 +367,10 @@ def test_walk_twin_matches_jax_kernel(city, cluster, use_skip):
     )
     rows = np.asarray(jpacked[0])[:, :16].copy()
     rows[:, 13] = rows[:, 13].astype(np.int32).view(np.float32)
-    rows[:, 14:] = 0.0
+    ids = np.arange(len(rows), dtype=np.int32)
+    ids[tb.tri_n.shape[0]:] = 0  # the zero rows that pad the last cluster
+    rows[:, 14] = ids.view(np.float32)  # each row carries its prim id
+    rows[:, 15:] = 0.0
     own = tw.pack_clusters(tb, cluster)
     np.testing.assert_allclose(own[0].numpy(), rows, rtol=1e-5, atol=1e-5)  # FMA: see above
     packed = torch.from_numpy(rows)
@@ -373,7 +378,8 @@ def test_walk_twin_matches_jax_kernel(city, cluster, use_skip):
     for a, b in zip((cmin, cmax, cvalid), own[1:]):
         assert torch.equal(a, b)
     t, prim, u, v, tested = tw.trace_tile_walk(
-        packed, cmin, cmax, cvalid, *(torch.from_numpy(a) for a in args), cluster, use_skip
+        packed, cmin, cmax, cvalid, *(torch.from_numpy(a) for a in args), cluster, use_skip,
+        *_prim_order(cmin.shape[0], cluster, len(args[0])),
     )
     _assert_hits_match(prim, t, u, v, jp, jt, ju, jv)
     p = prim.numpy()[:700]
@@ -404,7 +410,9 @@ def test_walk_tie_rule_across_clusters(use_skip):
     valid[[1, 4, 72]] = 1.0
     pre = jax_precompute(jnp.asarray(tris))
     cols = [np.asarray(pre[k]).reshape(rows, -1) for k in ("n", "eu", "ev", "cn", "cu", "cv")]
-    rows16 = np.concatenate(cols + [valid[:, None], np.zeros((rows, 3), np.float32)], axis=1)
+    ids = np.arange(rows, dtype=np.int32).view(np.float32)[:, None]  # each row's prim id
+    rows16 = np.concatenate(cols + [valid[:, None], np.zeros((rows, 1), np.float32), ids,
+                                    np.zeros((rows, 1), np.float32)], axis=1)
     cmin = np.repeat(tri[0].min(0)[None], L, 0)
     cmax = np.repeat(tri[0].max(0)[None], L, 0)
     jrows = np.concatenate([rows16, np.zeros((rows, 112), np.float32)], axis=1)
@@ -423,10 +431,19 @@ def test_walk_tie_rule_across_clusters(use_skip):
         *(jnp.asarray(a) for a in args), interpret=True, cluster=cluster, use_skip=use_skip)
     t, prim, u, v, tested = tw.trace_tile_walk(
         torch.from_numpy(rows16), torch.from_numpy(cmin), torch.from_numpy(cmax),
-        torch.ones(L, dtype=torch.bool), *(torch.from_numpy(a) for a in args), cluster, use_skip)
+        torch.ones(L, dtype=torch.bool), *(torch.from_numpy(a) for a in args), cluster, use_skip,
+        *_prim_order(L, cluster, n))
     want, n_tested = (4, 1) if use_skip else (72, 2)
     assert (prim.numpy() == want).all() and tested.tolist() == [n_tested]
     _assert_hits_match(prim, t, u, v, jp, jt, ju, jv)
+
+
+def _prim_order(L, cluster, R, device="cpu"):
+    """The walk's arguments for clusters in prim order, as the JAX package
+    cuts them: each cluster's prim range, the prims they span and a zero
+    margin for each of the R rays (the JAX package's boxes take none)."""
+    return (ttiled.prim_ranges(L, cluster, device), L * cluster,
+            torch.zeros((R,), device=device))
 
 
 def _tie_walk(prims, device="cpu"):
@@ -438,8 +455,10 @@ def _tie_walk(prims, device="cpu"):
     pre = tint.precompute_triangles(torch.from_numpy(np.repeat(tri, rows, axis=0)))
     valid = torch.zeros(rows)
     valid[list(prims)] = 1.0
+    ids = torch.arange(rows, dtype=torch.int32).view(torch.float32)[:, None]  # prim ids
     packed = torch.cat([pre["n"], pre["eu"], pre["ev"], pre["cn"][:, None], pre["cu"][:, None],
-                        pre["cv"][:, None], valid[:, None], torch.zeros((rows, 3))], dim=1)
+                        pre["cv"][:, None], valid[:, None], torch.zeros((rows, 1)), ids,
+                        torch.zeros((rows, 1))], dim=1)
     rng = np.random.default_rng(5)
     n = 512
     xy = rng.uniform(-0.3, 0.3, (n, 2)).astype(np.float32)
@@ -452,9 +471,11 @@ def _tie_walk(prims, device="cpu"):
         np.zeros(n, np.int32), np.full(n, rows, np.int32))]
     cmin = torch.from_numpy(np.repeat(tri[0].min(0)[None], L, 0))
     cmax = torch.from_numpy(np.repeat(tri[0].max(0)[None], L, 0))
+    prange, num_prims, margin = _prim_order(L, cluster, n)
     order, entry, maxent = tw.tile_entries(cmin, cmax, torch.ones(L, dtype=torch.bool), rays[0],
-                                           rays[1], rays[2], rays[5], rays[6], cluster)
-    walk = (packed, cmin, cmax, *rays, order, entry, maxent, cluster, False)
+                                           rays[1], rays[2], rays[5], rays[6], prange, num_prims,
+                                           margin)
+    walk = (packed, cmin, cmax, *rays, order, entry, maxent, cluster, False, prange, margin)
     return tuple(x.to(device) if isinstance(x, torch.Tensor) else x for x in walk)
 
 
@@ -606,9 +627,12 @@ def test_kernel_matches_twin_on_card(city, cuda_device):
     args = [torch.from_numpy(a).to(cuda_device) for a in _padded(arrays, 65536, 41)]
     for cluster, use_skip in WALK_CASES:
         packed, cmin, cmax, cvalid = tw.pack_clusters(tb, cluster)
+        prange, num_prims, margin = _prim_order(cmin.shape[0], cluster, len(args[0]),
+                                                cuda_device)
         order, entry, maxent = tw.tile_entries(cmin, cmax, cvalid, args[0], args[1], args[2],
-                                               args[5], args[6], cluster)
-        walk = (packed, cmin, cmax, *args, order, entry, maxent, cluster, use_skip)
+                                               args[5], args[6], prange, num_prims, margin)
+        walk = (packed, cmin, cmax, *args, order, entry, maxent, cluster, use_skip, prange,
+                margin)
         before = tw.launches
         got = tw.tile_walk(*walk)
         assert tw.launches == before + 1
@@ -628,9 +652,12 @@ def test_kernel_ragged_tile_and_part_ties_on_card(city, cuda_device):
     args = [torch.from_numpy(a).to(cuda_device) for a in _padded(arrays, 65536 - 300, 43)]
     for cluster, use_skip in WALK_CASES:
         packed, cmin, cmax, cvalid = tw.pack_clusters(tb, cluster)
+        prange, num_prims, margin = _prim_order(cmin.shape[0], cluster, len(args[0]),
+                                                cuda_device)
         order, entry, maxent = tw.tile_entries(cmin, cmax, cvalid, args[0], args[1], args[2],
-                                               args[5], args[6], cluster)
-        walk = (packed, cmin, cmax, *args, order, entry, maxent, cluster, use_skip)
+                                               args[5], args[6], prange, num_prims, margin)
+        walk = (packed, cmin, cmax, *args, order, entry, maxent, cluster, use_skip, prange,
+                margin)
         want = tw.tile_walk_reference(*walk)
         assert int(want[4].min()) < int(want[4].max())  # tiles of unequal length
         for a, b in zip(tw.tile_walk(*walk), want):

@@ -198,7 +198,8 @@ def _slab_table(cmin, cmax, cvalid, cluster, range_dtype):
     return torch.where(ok[:, None], bounds, float("inf")), lo_c, hi_c
 
 
-def _kernel_test(cmin, cmax, cvalid, o, inv, maxd, lo, hi, cluster, range_dtype, choose=True):
+def _kernel_test(cmin, cmax, cvalid, o, inv, maxd, lo, hi, cluster, range_dtype, full,
+                 choose=True):
     """The slab test as the kernels run it, in torch: (hit (R, L), entry
     (R, L) f32, the rays' warp path (R,): 0 clean, full range and one
     octant; 1 clean and full range; 2 clean; 3 with NaN compares). The
@@ -210,7 +211,9 @@ def _kernel_test(cmin, cmax, cvalid, o, inv, maxd, lo, hi, cluster, range_dtype,
     cluster's range, and the per-axis min and max unless, besides, every
     ray has the signs of lane 0's inv (then the near and far bound of each
     axis by the sign). ``lo``/``hi`` are the ray ranges in ``range_dtype``
-    (f32 for phase 1, int32 for phase A). With ``choose`` False every warp
+    (f32 for phase 1, int32 for phase A); a ray takes every cluster's range
+    where lo < full[0] and hi > full[1] (phase 1: (1, num_prims - 1);
+    phase A: (cluster, (L - 1) * cluster)). With ``choose`` False every warp
     takes the test without NaN and range compares, which is right only
     where the choice would have taken it."""
     R, L = o.shape[0], cmin.shape[0]
@@ -229,8 +232,8 @@ def _kernel_test(cmin, cmax, cvalid, o, inv, maxd, lo, hi, cluster, range_dtype,
     b = (bounds[None, :, 3:] - o[:, None]) * inv[:, None]
     nan = (a.isnan() | b.isnan()).any(-1)
     clean = torch.isfinite(o).all(1) & torch.isfinite(inv).all(1) & (inv != 0).all(1)
-    full = (lo < torch.tensor(cluster).to(range_dtype)) & (
-        hi > torch.tensor((L - 1) * cluster).to(range_dtype))
+    full = (lo < torch.tensor(full[0]).to(range_dtype)) & (
+        hi > torch.tensor(full[1]).to(range_dtype))
     sign = inv < 0
     warp_clean = clean.reshape(-1, 32).all(1).repeat_interleave(32)
     warp_full = full.reshape(-1, 32).all(1).repeat_interleave(32)
@@ -255,16 +258,18 @@ def _kernel_test(cmin, cmax, cvalid, o, inv, maxd, lo, hi, cluster, range_dtype,
     return hit[:R], entry[:R], path[:R]
 
 
-def _kernel_entries(cmin, cmax, cvalid, o, inv, maxd, lo=None, hi=None, cluster=0, choose=True):
-    """Phase 1 as its kernel runs it (``_kernel_test`` in f32): (entries
-    (T, L), ray_maxent (R,), the warp paths (R,))."""
+def _kernel_entries(cmin, cmax, cvalid, o, inv, maxd, lo=None, hi=None, cluster=0, num_prims=0,
+                    choose=True):
+    """Phase 1 as its kernel runs it (``_kernel_test`` in f32) on clusters
+    in prim order (``tiled.prim_ranges``): (entries (T, L), ray_maxent
+    (R,), the warp paths (R,))."""
     R = o.shape[0]
     if lo is None:
         lo, hi = torch.full((R,), float("-inf")), torch.full((R,), float("inf"))
     else:
         lo, hi = lo.to(torch.float32), hi.to(torch.float32)
     hit, entry, path = _kernel_test(cmin, cmax, cvalid, o, inv, maxd, lo, hi, cluster,
-                                    torch.float32, choose)
+                                    torch.float32, (1, num_prims - 1), choose)
     entries = torch.where(hit, entry, F32_MAX).reshape(R // ttiled.TILE_R, ttiled.TILE_R, -1)
     return entries.amin(dim=1), torch.where(hit, entry, -1.0).amax(dim=1), path
 
@@ -280,7 +285,7 @@ def _decomposed_plan(cmin, cmax, cvalid, o, d, maxd, lo, hi, items_per_ray, chun
     the warps below in the chunk plus the bits below in its own mask."""
     R, L = o.shape[0], cmin.shape[0]
     hit = _kernel_test(cmin, cmax, cvalid, o, ttiled.safe_inv_dir(d), maxd, lo, hi, tsc.CLUSTER,
-                       torch.int32)[0]
+                       torch.int32, (tsc.CLUSTER, (L - 1) * tsc.CLUSTER))[0]
     nw, nch = -(-R // 32), -(-R // chunk)
     lane = torch.arange(32, dtype=torch.int64)
     bits = torch.zeros((nw * 32, L), dtype=torch.int64)
@@ -349,23 +354,28 @@ def test_kernel_test_equals_twins_on_hazards(cities, phase, scene_name):
     if phase == "plan":
         inv = ttiled.safe_inv_dir(d)
         want = tsc._chunk_mask(cmin, cmax, cvalid, o, inv, maxd, lo, hi)
-        got, _, path = _kernel_test(cmin, cmax, cvalid, o, inv, maxd, lo, hi, cluster, torch.int32)
+        full = (cluster, (cmin.shape[0] - 1) * cluster)
+        got, _, path = _kernel_test(cmin, cmax, cvalid, o, inv, maxd, lo, hi, cluster, torch.int32,
+                                    full)
         assert torch.equal(got, want)
         assert want.sum() > o.shape[0]
-        short = _kernel_test(cmin, cmax, cvalid, o, inv, maxd, lo, hi, cluster, torch.int32,
+        short = _kernel_test(cmin, cmax, cvalid, o, inv, maxd, lo, hi, cluster, torch.int32, full,
                              choose=False)[0]
         assert not torch.equal(short, want)
     else:
         o, d, maxd, lo, hi = _pad_tiles([o, d, maxd, lo, hi])
         inv = ttiled.safe_inv_dir(d)
         differs = False
+        prange = ttiled.prim_ranges(cmin.shape[0], cluster, "cpu")
         for rng in ((lo, hi), (None, None)):
+            ranges = (prange, tb.num_tris) if rng[0] is not None else (None, 0)
             want = ttiled.tile_cluster_entries_reference(cmin, cmax, cvalid, o, inv, maxd, *rng,
-                                                         cluster=cluster)
-            got = _kernel_entries(cmin, cmax, cvalid, o, inv, maxd, *rng, cluster=cluster)
+                                                         *ranges)
+            got = _kernel_entries(cmin, cmax, cvalid, o, inv, maxd, *rng, cluster=cluster,
+                                  num_prims=tb.num_tris)
             assert same_bits(got[0], want[0]) and same_bits(got[1], want[1])
             short = _kernel_entries(cmin, cmax, cvalid, o, inv, maxd, *rng, cluster=cluster,
-                                    choose=False)
+                                    num_prims=tb.num_tris, choose=False)
             differs |= not (same_bits(short[0], want[0]) and same_bits(short[1], want[1]))
             if rng[0] is not None:
                 path = got[2]
@@ -404,8 +414,9 @@ def test_entries_signed_zero_and_nan_pinned(cities):
     rays, groups, corner = _edge_rays(cmin, cmax, cvalid)
     o, d, maxd, lo, hi = _pad_tiles(rays)
     inv = ttiled.safe_inv_dir(d)
+    prange = ttiled.prim_ranges(cmin.shape[0], PHASE1_CLUSTER, "cpu")
     entries, maxent = ttiled.tile_cluster_entries(cmin, cmax, cvalid, o, inv, maxd, lo, hi,
-                                                  cluster=PHASE1_CLUSTER)
+                                                  prange, tb.num_tris)
     s, e = groups["max_corner"]
     assert s == 0 and e <= ttiled.TILE_R  # tile 0 starts with these rays
     # The twin's slab test without the +0.0, at each ray's own cluster.
@@ -423,7 +434,7 @@ def test_entries_signed_zero_and_nan_pinned(cities):
                 for x in (o, d, maxd, lo, hi)]
     e_nan, m_nan = ttiled.tile_cluster_entries(
         cmin, cmax, cvalid, nan_tile[0], ttiled.safe_inv_dir(nan_tile[1]), *nan_tile[2:],
-        cluster=PHASE1_CLUSTER)
+        prange, tb.num_tris)
     assert (e_nan == F32_MAX).all() and (m_nan == -1.0).all()
 
 
@@ -462,7 +473,8 @@ def test_wrappers_raise_off_cpu_and_cuda(cities, monkeypatch):
     maxd = torch.ones((R,))
     lo, hi = torch.zeros((R,), dtype=torch.int32), torch.ones((R,), dtype=torch.int32)
     launches = (ttiled.launches, tsc.plan_launches)
-    ttiled.tile_cluster_entries(cmin, cmax, cvalid, o, d, maxd, lo, hi, cluster=tsc.CLUSTER)
+    prange = ttiled.prim_ranges(cmin.shape[0], tsc.CLUSTER, "cpu")
+    ttiled.tile_cluster_entries(cmin, cmax, cvalid, o, d, maxd, lo, hi, prange, tb.num_tris)
     tsc.scatter_plan(cmin, cmax, cvalid, o, d, maxd, lo, hi)
     assert (ttiled.launches, tsc.plan_launches) == launches
 
@@ -473,7 +485,7 @@ def test_wrappers_raise_off_cpu_and_cuda(cities, monkeypatch):
     monkeypatch.setattr(tsc, "scatter_plan_reference", fail)
     meta = [x.to("meta") for x in (cmin, cmax, cvalid, o, d, maxd, lo, hi)]
     with pytest.raises(NotImplementedError, match="tile_cluster_entries"):
-        ttiled.tile_cluster_entries(*meta, cluster=tsc.CLUSTER)
+        ttiled.tile_cluster_entries(*meta, prange.to("meta"), tb.num_tris)
     with pytest.raises(NotImplementedError, match="scatter_plan"):
         tsc.scatter_plan(*meta)
     assert (ttiled.launches, tsc.plan_launches) == launches
@@ -511,26 +523,32 @@ def _entries_cases(arrays, tb):
 @pytest.mark.cuda
 def test_tile_entries_kernel_matches_twin_on_card(cities, cuda_device):
     """Entries and max entries bit for bit, with and without the prim
-    range, and the stable sort of the entries equal; two launches a call
-    (the staged table, the tests).
+    range, with and without a per-ray box margin, and the stable sort of
+    the entries equal; two launches a call (the staged table, the tests).
     The cases include warps that mix clean and NaN rays and clusters with
-    non-finite bounds (``_hazard_case``); 288 and 72 clusters, neither a
-    multiple of the kernel's stage of 128."""
+    non-finite bounds or a min above the max (``_hazard_case``); 288 and
+    72 clusters, neither a multiple of the kernel's stage of 128."""
     arrays, tb = cities["blocks3_detail"]
+    g = torch.Generator().manual_seed(7)
     for label, cmin, cmax, cvalid, o, d, maxd, lo, hi, cluster in _entries_cases(arrays, tb):
         inv = ttiled.safe_inv_dir(d)
-        for ranged in (False, True):
-            rng_args = (lo, hi) if ranged else (None, None)
+        prange = ttiled.prim_ranges(cmin.shape[0], cluster, "cpu")
+        grown = torch.rand(o.shape[0], generator=g) * 0.5
+        for ranged, margin in ((False, None), (True, None), (False, grown), (True, grown)):
+            rng_args = (lo, hi, prange) if ranged else (None, None, None)
+            num_prims = tb.num_tris if ranged else 0
             want = ttiled.tile_cluster_entries(cmin, cmax, cvalid, o, inv, maxd, *rng_args,
-                                               cluster=cluster)
+                                               num_prims, margin)
             dev_args = [x.to(cuda_device) if x is not None else None
                         for x in (cmin, cmax, cvalid, o, inv, maxd, *rng_args)]
             before = ttiled.launches
-            got = ttiled.tile_cluster_entries(*dev_args, cluster=cluster)
+            got = ttiled.tile_cluster_entries(*dev_args, num_prims,
+                                              margin.to(cuda_device) if margin is not None
+                                              else None)
             torch.cuda.synchronize()
             assert ttiled.launches == before + 2
-            for g, w in zip(got, want):
-                assert same_bits(g.cpu(), w), (label, ranged)
+            for g_, w in zip(got, want):
+                assert same_bits(g_.cpu(), w), (label, ranged, margin is not None)
             assert torch.equal(torch.sort(got[0], dim=1, stable=True)[1].cpu(),
                                torch.sort(want[0], dim=1, stable=True)[1])
 
